@@ -88,11 +88,17 @@ def _torch_batch(jb):
     return out
 
 
-@pytest.mark.parametrize("view", ["train", "test", "novel"])
+@pytest.mark.parametrize("view", ["train", "test", "novel", "dynamic"])
 def test_flagship_forward_matches_jax(scene, view):
+    """"dynamic": a training view with the dynamic-region weight on, which
+    adds the second, dynamic-classes-only rasterize."""
     s = scene
-    frame = {"train": 1, "test": 2, "novel": 3}[view]
-    test = view != "train"
+    frame = {"train": 1, "test": 2, "novel": 3, "dynamic": 2}[view]
+    test = view in ("test", "novel")
+    tcfg, pcfg = s["tcfg"], s["pcfg"]
+    if view == "dynamic":
+        tcfg = dataclasses.replace(tcfg, w_dynamic_region=1.0)
+        pcfg = dataclasses.replace(pcfg, w_dynamic_region=1.0)
     jb = jsynthetic.make_batch(s["jscene"], frame, jnp.zeros((H, W, 3)))
     if view == "novel":
         c2w = np.array(jb["camera_to_world"])
@@ -100,11 +106,11 @@ def test_flagship_forward_matches_jax(scene, view):
         jb = dict(jb, camera_to_world=jnp.asarray(c2w))
     nbrs = [1, 3] if view == "test" else None
     fwd = jax.jit(functools.partial(
-        jtrainer.forward, s["tcfg"], in_test_set=test,
+        jtrainer.forward, tcfg, in_test_set=test,
         novel_view=view == "novel", rasterize_fn=_jax_rasterize_xla))
     jo = fwd(s["params"], s["statics"], s["masks"], jb, jnp.asarray(STEP),
              neighbor_idx=None if nbrs is None else jnp.asarray(nbrs))
-    to = trainer.forward(s["pcfg"], s["tparams"], s["tstatics"], s["tmasks"],
+    to = trainer.forward(pcfg, s["tparams"], s["tstatics"], s["tmasks"],
                          _torch_batch(jb), STEP, in_test_set=test,
                          novel_view=view == "novel", neighbor_idx=nbrs)
 
@@ -120,6 +126,29 @@ def test_flagship_forward_matches_jax(scene, view):
     np.testing.assert_allclose(to["depth"].numpy()[..., 0][hit],
                                np.asarray(jo["depth"])[..., 0][hit],
                                atol=1e-3, rtol=1e-4)
+    assert ("Dynamic_opacity" in to) == ("Dynamic_opacity" in jo) \
+        == (view == "dynamic")
+    if view == "dynamic":
+        # the JAX forward renders this pass with pipeline.rasterize itself
+        # (not rasterize_fn), so its Pallas expansion fault shows there;
+        # the reference is the same pass through the XLA expansion
+        merged, labels = jtrainer.collect_gaussians(
+            tcfg, s["params"], s["statics"], s["masks"],
+            jb["camera_to_world"][:3, 3], jnp.asarray(STEP), jb["frame_idx"],
+            jb["normed_time"])
+        dyn_op = jnp.where(labels != 0, merged.opacities, 0.0)
+        c2w = jb["camera_to_world"]
+        view_m = jnp.eye(4).at[:3, :3].set(c2w[:3, :3].T).at[:3, 3].set(
+            -c2w[:3, :3].T @ c2w[:3, 3])
+        want = _jax_rasterize_xla(
+            merged.means, merged.quats, merged.scales, dyn_op, merged.rgbs,
+            view_m, jb["intrinsics"], W, H, jpipeline.RasterizeConfig(
+                near_plane=tcfg.near_plane, far_plane=tcfg.far_plane,
+                isect_capacity=CAP, interpret=True))["alpha"]
+        want = np.asarray(want)
+        assert 0.0 < want.mean() < opacity.mean()
+        np.testing.assert_allclose(to["Dynamic_opacity"].numpy(), want,
+                                   atol=3e-5, rtol=1e-4)
 
 
 def test_envlight_and_bilateral_pieces_match_jax():
