@@ -5,7 +5,6 @@ kernels run in interpret mode, as tests/test_expand_pallas.py runs them.
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
