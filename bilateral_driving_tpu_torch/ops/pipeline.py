@@ -31,9 +31,6 @@ class RasterizeConfig:
     # opacity-aware effective-radius span tightening (output-exact under
     # the compositing 1/255 alpha gate; see rasterize())
     tight_radius: bool = True
-    # run the kernels' plain PyTorch versions even on CUDA tensors: the
-    # reference render that the kernels are held against on the card
-    plain: bool = False
 
 
 def probe_num_isects(means, quats, scales, viewmat, K, width: int,
@@ -111,22 +108,15 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         torch.arange(n, dtype=torch.float32, device=means.device),
         torch.zeros(n, dtype=torch.float32, device=means.device),
     ])
-    expand = (expand_cuda.expand_gather_plain if cfg.plain
-              else expand_cuda.expand_gather)
-    key, gid, feats = expand(table_T, exp.offsets, exp.num_isects, cap, ntx,
-                             n_tiles, n)
+    key, gid, feats = expand_cuda.expand_gather(
+        table_T, exp.offsets, exp.num_isects, cap, ntx, n_tiles, n)
     key_s, perm = torch.sort(key, stable=True)
     gid_s = gid[perm]
     feats_s = feats[:, perm]
     starts, counts = binning.tile_ranges(
         binning.tiles_of_keys(key_s, n_tiles), exp.num_isects, n_tiles, cap)
 
-    if cfg.plain:
-        out = rasterize_cuda.rasterize_fwd_plain(feats_s, starts, counts,
-                                                    width, height)[0]
-    else:
-        out = rasterize_cuda.rasterize_fwd(feats_s, starts, counts, width,
-                                           height)
+    out = rasterize_cuda.rasterize_fwd(feats_s, starts, counts, width, height)
     rgb, depth_acc, alpha = unpack(out, width, height)
     depth = depth_acc / torch.clamp(alpha, min=1e-10)  # gsplat "ED" depth
     return {

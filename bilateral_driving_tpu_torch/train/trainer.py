@@ -41,9 +41,6 @@ class TrainerConfig:
     isect_capacity: int = 2 ** 20
     sh_degree: int = 3
     sh_degree_interval: int = 1000
-    # render through the kernels' plain PyTorch versions: the reference the
-    # CUDA kernels are held against on the card
-    plain_kernels: bool = False
 
     # appearance and sky
     ms_grid: tuple = bilateral.DEFAULT_MS_GRID
@@ -149,7 +146,7 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     rcfg = pipeline.RasterizeConfig(
         near_plane=cfg.near_plane, far_plane=cfg.far_plane,
         radius_clip=cfg.radius_clip, antialiased=cfg.antialiased,
-        isect_capacity=cfg.isect_capacity, plain=cfg.plain_kernels)
+        isect_capacity=cfg.isect_capacity)
     out = pipeline.rasterize(
         merged.means, merged.quats, merged.scales, merged.opacities,
         merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg)

@@ -19,8 +19,9 @@ with its result and elapsed seconds:
             affines, one novel view) with the launch counters read per frame
   reference one frame again through the plain versions, compared
   times     CUDA-event times of each kernel, its plain version and its bound
-  profile   one frame under torch.profiler: device busy time, idle share
-            and the operations that take the most device time
+  profile   one frame under torch.profiler: device busy time, idle share,
+            the number of device operations and those that take the most
+            device time
 
 Then a `kernels` JSON line, the card's name and power limit as nvidia-smi
 gives them, and, last, {"ok": true, "device": {...}}. Any failed check
@@ -32,6 +33,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import math
@@ -54,9 +56,17 @@ RASTER_ATOL, RASTER_RTOL = 1e-4, 1e-5   # kernel vs plain, per element
 FRAME_ATOL = 1e-4                       # rendered rgb, kernels vs plain
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
-# f32 operations per (entry, pixel): evaluating alpha (offsets, sigma, exp,
-# clamp, gate) and, where alpha passes the gate, blending 4 channels + T
-ALPHA_OPS, BLEND_OPS = 19, 11
+# The least work each kernel must do on its inputs, for its bound.
+# Expansion reads table rows 0-14 of each Gaussian that has entries (row 15
+# is padding; row 3, the segment start, is what the search in offsets finds)
+# and writes key, gid and 10 features per entry.
+EXPAND_ROWS_READ = 15
+# Compositing, in f32 operations: per live entry and tile, the mean relative
+# to the tile origin and the halved a and c (4); per live (entry, pixel)
+# pair, dx, dy and sigma = dx (a/2 dx + b dy) + dy (c/2 dy) - logop (10),
+# then exp, clamp and the 1/255 gate (3); per pair past the gate, the
+# weight, 4 channels x (multiply, add) and the transmittance update (10).
+ENTRY_OPS, PAIR_OPS, BLEND_OPS = 4, 13, 10
 
 
 class SmokeError(RuntimeError):
@@ -78,6 +88,20 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def kernels_replaced(pipeline, expand_gather, rasterize_fwd):
+    """Point the pipeline's two kernel calls at stand-ins for a block. The
+    pipeline reaches the kernels through its module references only."""
+    real = (pipeline.expand_cuda, pipeline.rasterize_cuda)
+    pipeline.expand_cuda = types.SimpleNamespace(expand_gather=expand_gather)
+    pipeline.rasterize_cuda = types.SimpleNamespace(
+        rasterize_fwd=rasterize_fwd)
+    try:
+        yield
+    finally:
+        pipeline.expand_cuda, pipeline.rasterize_cuda = real
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -201,10 +225,8 @@ def main() -> int:
           envlight_resolution=cfg.envlight_resolution,
           probe_num_isects=probes, isect_capacity=cap)
 
-    # ---- kernels: capture the main path's kernel inputs on one frame.
-    # The pipeline reaches the kernels through its module references, so a
-    # stand-in for those records the arguments and calls the real wrappers
-    # (whose launch counters stay where they are).
+    # ---- kernels: capture the main path's kernel inputs on one frame; the
+    # stand-ins record the arguments and call the real wrappers
     t0 = time.perf_counter()
     captured = {}
 
@@ -214,17 +236,10 @@ def main() -> int:
             return fn(*a)
         return wrapped
 
-    real = (pipeline.expand_cuda, pipeline.rasterize_cuda)
-    pipeline.expand_cuda = types.SimpleNamespace(
-        expand_gather=capturing("expand", expand_cuda.expand_gather),
-        expand_gather_plain=expand_cuda.expand_gather_plain)
-    pipeline.rasterize_cuda = types.SimpleNamespace(
-        rasterize_fwd=capturing("rasterize_fwd", rasterize_cuda.rasterize_fwd),
-        rasterize_fwd_plain=rasterize_cuda.rasterize_fwd_plain)
-    try:
+    with kernels_replaced(
+            pipeline, capturing("expand", expand_cuda.expand_gather),
+            capturing("rasterize_fwd", rasterize_cuda.rasterize_fwd)):
         render_loop.render_images(cfg, state, statics, data, TRAIN_VIEWS[:1])
-    finally:
-        pipeline.expand_cuda, pipeline.rasterize_cuda = real
     check(set(captured) == {"expand", "rasterize_fwd"},
           f"captured {sorted(captured)}")
 
@@ -235,7 +250,13 @@ def main() -> int:
     expand_equal = (torch.equal(k1, k2) and torch.equal(g1, g2)
                     and torch.equal(f1.view(torch.int32),
                                     f2.view(torch.int32)))
-    check(expand_equal, "expand kernel differs from its plain version")
+    feat_diff = torch.where(torch.isnan(f1) & torch.isnan(f2),
+                            torch.zeros_like(f1), (f1 - f2).abs())
+    expand_err = max(float((k1.long() - k2.long()).abs().max()),
+                     float((g1.long() - g2.long()).abs().max()),
+                     float(feat_diff.max()))
+    check(expand_equal, "expand kernel differs from its plain version "
+          f"(max abs err {expand_err})")
 
     ra = captured["rasterize_fwd"]
     img_k = rasterize_cuda.rasterize_fwd(*ra)
@@ -248,6 +269,7 @@ def main() -> int:
     check(raster_ok, f"compositing kernel differs from its plain version "
           f"(max abs err {raster_err})")
     phase("kernels", t0, expand_bit_exact=expand_equal,
+          expand_max_abs_err=expand_err,
           gaussians=int(ea[1].shape[0]) - 1, capacity=ea[3],
           rasterize_max_abs_err=raster_err,
           rasterize_tolerance=f"atol {RASTER_ATOL} + rtol {RASTER_RTOL}",
@@ -299,12 +321,18 @@ def main() -> int:
     # ---- reference: one frame through the plain versions
     t0 = time.perf_counter()
     batch = data.get_batch(TRAIN_VIEWS[0])
-    ref_cfg = configs.flagship_config(data.num_images, NUM_FRAMES,
-                                      isect_capacity=cap, plain_kernels=True)
     o_k = trainer.forward(cfg, state.params, full_statics, state.masks,
                           batch, state.step)
-    o_p = trainer.forward(ref_cfg, state.params, full_statics, state.masks,
-                          batch, state.step)
+    counts_before = [expand_cuda.expand_gather.launches,
+                     rasterize_cuda.rasterize_fwd.launches]
+    with kernels_replaced(
+            pipeline, expand_cuda.expand_gather_plain,
+            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a)[0]):
+        o_p = trainer.forward(cfg, state.params, full_statics, state.masks,
+                              batch, state.step)
+    check([expand_cuda.expand_gather.launches,
+           rasterize_cuda.rasterize_fwd.launches] == counts_before,
+          "a kernel launched in the plain reference frame")
     frame_err = float((o_k["rgb"] - o_p["rgb"]).abs().max())
     check(frame_err <= FRAME_ATOL,
           f"frame differs from its plain render by {frame_err}")
@@ -313,8 +341,9 @@ def main() -> int:
 
     # ---- times, and each kernel's bound from this run's inputs
     t0 = time.perf_counter()
-    table_T, offsets, _, e_cap = ea[0], ea[1], ea[2], ea[3]
-    expand_bytes = (table_T.numel() * 4 + offsets.numel() * 4 + 4
+    offsets, e_cap = ea[1].long(), ea[3]
+    used_gaussians = int((offsets[1:] > offsets[:-1]).sum())
+    expand_bytes = (used_gaussians * EXPAND_ROWS_READ * 4 + 4
                     + e_cap * (4 + 4 + 4 * expand_cuda.NFEAT))
     feats_s, starts, counts = ra[0], ra[1], ra[2]
     start = starts.long()
@@ -323,7 +352,7 @@ def main() -> int:
         end, (torch.div(start, 128, rounding_mode="floor") + n_live) * 128)
     live_entries = int(torch.clamp(live_end - start, min=0).sum())
     blend_pairs = int(n_blend)
-    raster_ops = (live_entries * rasterize_cuda.PIX * ALPHA_OPS
+    raster_ops = (live_entries * (ENTRY_OPS + rasterize_cuda.PIX * PAIR_OPS)
                   + blend_pairs * BLEND_OPS)
     raster_bytes = (live_entries * 4 * rasterize_cuda.NFEAT
                     + starts.numel() * 8 + img_k.numel() * 4)
@@ -333,7 +362,7 @@ def main() -> int:
              "bilateral_driving_tpu/ops/expand_pallas.py:159",
              lambda: expand_cuda.expand_gather(*ea),
              lambda: expand_cuda.expand_gather_plain(*ea),
-             expand_bytes, 0, 0.0),
+             expand_bytes, 0, expand_err),
             ("rasterize_fwd", "bilateral_driving_tpu_torch/csrc/rasterize_fwd.cu",
              "bilateral_driving_tpu/ops/rasterize_pallas.py:370",
              lambda: rasterize_cuda.rasterize_fwd(*ra),
@@ -355,7 +384,9 @@ def main() -> int:
         })
     phase("times", t0, ms_per_frame_median=round(
         1e3 * sorted(frame_s)[len(frame_s) // 2], 2),
+          used_gaussians=used_gaussians, expand_bytes=expand_bytes,
           live_entries=live_entries, blend_pairs=blend_pairs,
+          raster_ops=raster_ops,
           nvidia_smi=nvidia_smi())
 
     # ---- profile: where one frame's device time goes
@@ -380,6 +411,7 @@ def main() -> int:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     phase("profile", t0, profiled_frame_ms=round(wall_ms, 3),
           device_busy_ms=round(busy_ms, 3) if busy_ms else "not measured",
+          device_ops=sum(e.count for e in events),
           device_idle_share_of_median_frame=(
               round(1.0 - busy_ms / median_ms, 4) if busy_ms
               else "not measured"),

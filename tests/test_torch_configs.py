@@ -21,9 +21,7 @@ def test_flagship_preset_equals_yaml():
     want = common.trainer_config_from(cfg, num_images=240, num_frames=40,
                                       scene_scale=1.0)
     got = configs.flagship_config(240, 40)
-    port_only = {"plain_kernels"}
-    fields = [f.name for f in dataclasses.fields(trainer.TrainerConfig)
-              if f.name not in port_only]
+    fields = [f.name for f in dataclasses.fields(trainer.TrainerConfig)]
     # every field the port's forward reads exists in the JAX config
     assert all(hasattr(want, name) for name in fields)
     for name in fields:

@@ -219,14 +219,6 @@ def test_render_images_on_a_synthetic_scene():
     assert not any(bool(o) for o in res["overflow"])
     assert all(int(n) > 0 for n in res["num_isects"])
 
-    # plain_kernels renders the same image (on the CPU both are plain)
-    ref = trainer.forward(dataclasses.replace(cfg, plain_kernels=True),
-                          state.params,
-                          trainer.merge_statics(statics, state.aux),
-                          state.masks, data.get_batch(0), STEP)
-    np.testing.assert_array_equal(torch.clamp(ref["rgb"], 0, 1).numpy(),
-                                  res["rgbs"][0].numpy())
-
 
 def test_unported_branches_name_their_slice():
     cfg = configs.flagship_config(1, 1, sky_model="mlp")
