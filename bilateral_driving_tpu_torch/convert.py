@@ -5,6 +5,8 @@ and lists of arrays; the port keeps the same nesting with tensors, except
 that a deformation network (`deform_net`: trunk/heads dicts of (in, out)
 weight matrices) becomes a models.deform.DeformNetwork. Inputs are numpy
 arrays (np.asarray of the JAX leaves); nothing of JAX is imported here.
+`train_state_from_jax` carries a training state: parameters, aux, masks,
+density statistics and step; the port builds its own fresh Adam state.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .models.deform import DeformNetwork
+from .train import density, trainer
 
 
 def _meta(meta) -> dict:
@@ -38,7 +41,8 @@ def deform_net_from_jax(tree, device) -> DeformNetwork:
                               [*trunk, *(heads[k] for k in net.heads)]):
             lin.weight.copy_(torch.from_numpy(np.array(layer["w"]).T))
             lin.bias.copy_(torch.from_numpy(np.array(layer["b"])))
-    return net.to(device)
+    # like every converted leaf, frozen until trainer.init_state
+    return net.to(device).requires_grad_(False)
 
 
 def tree_from_jax(tree, device):
@@ -55,3 +59,18 @@ def scene_from_jax(params, statics, aux, masks, device="cuda"):
     """(params, statics, aux, masks) of the JAX trainer -> the port's."""
     return tuple(tree_from_jax(t, device)
                  for t in (params, statics, aux, masks))
+
+
+def train_state_from_jax(cfg, params, aux, masks, stats, step: int,
+                         device="cuda", generator=None):
+    """A port TrainerState from the fields of a JAX TrainerState (stats:
+    class name -> DensityStats of arrays). The optimizer is fresh, as a
+    JAX state with a fresh opt_state is."""
+    tparams, taux, tmasks = (tree_from_jax(t, device)
+                             for t in (params, aux, masks))
+    state = trainer.init_state(cfg, tparams, tmasks, taux, step=int(step),
+                               generator=generator)
+    state.stats = {name: density.DensityStats(*(
+        torch.from_numpy(np.array(x)).to(device) for x in s))
+        for name, s in stats.items()}
+    return state

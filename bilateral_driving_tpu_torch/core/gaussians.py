@@ -28,10 +28,11 @@ class Gaussians(NamedTuple):
 def sh_colors(means, sh_dc, sh_rest, cam_origin, step: int,
               sh_degree_interval: int, max_degree: int) -> torch.Tensor:
     """View-dependent colour shared by every class: the active degree
-    ramps with the step, then clamp(sh + 0.5, 0, 1)."""
+    ramps with the step, then clamp(sh + 0.5, 0, 1). The view directions
+    carry no gradient to the means, as in the reference."""
     if max_degree == 0:
         return torch.sigmoid(sh_dc[:, 0, :])
-    viewdirs = means - cam_origin[None, :]
+    viewdirs = means.detach() - cam_origin[None, :]
     degree = min(step // sh_degree_interval, max_degree)
     coeffs = torch.cat([sh_dc, sh_rest], dim=1)
     rgbs = sh_lib.eval_sh(coeffs, viewdirs, degree, max_degree=max_degree)

@@ -1,4 +1,5 @@
-// Front-to-back tile compositing, forward only.
+// Front-to-back tile compositing, forward, with the residuals of its
+// backward.
 //
 // Replaces the TPU kernel bilateral_driving_tpu/ops/rasterize_pallas.py
 // (rasterize_fwd -> _make_fwd_kernel). The TPU kernel turns each 128-entry
@@ -16,8 +17,16 @@
 // After each chunk the whole tile stops once no pixel's transmittance is
 // above 1e-4 (__syncthreads_or), the TPU kernel's per-tile early stop at the
 // same chunk boundaries. Outputs r, g, b, the depth numerator and
-// alpha = 1 - T_final. The transmittance checkpoints the TPU kernel writes
-// for its backward are not written: the training slice adds its own.
+// alpha = 1 - T_final.
+//
+// Residuals for csrc/rasterize_bwd.cu, written only when the caller passes
+// their buffers (the render path passes null pointers and runs the
+// kResiduals = false instance, which has no residual code at all):
+// n_live[t], the chunks composited before the stop, and each live chunk's
+// entry transmittance per pixel at ckpt[(ckpt_off[t] + c) * 1024 + p].
+// ckpt_off is the exclusive prefix sum of the tiles' chunk counts, known
+// before the launch, so the buffer needs at most cap / 128 + n_tiles slots.
+// The TPU kernel checkpoints the same quantity (tc_ckpt, tc_side).
 //
 // Built with --fmad=false so that sigma and alpha round exactly as the
 // plain PyTorch version's separate elementwise operations do.
@@ -35,11 +44,14 @@ constexpr int kChunk = 128;
 constexpr int kNFeat = 10;   // x y a b c logop r g b depth
 constexpr int kOut = 5;      // r g b depth alpha
 
+template <bool kResiduals>
 __global__ void __launch_bounds__(kPix)
 rasterize_fwd_kernel(const float* __restrict__ feats, int cap,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts, int ntx,
-                     float* __restrict__ out) {
+                     float* __restrict__ out,
+                     const int* __restrict__ ckpt_off,
+                     float* __restrict__ ckpt, int* __restrict__ n_live) {
   __shared__ float sf[kNFeat][kChunk];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -53,8 +65,11 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int cap,
   const float py = (float)(p / kTile) + 0.5f;
 
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
-  for (int c = 0; c < nch; ++c) {
+  int c = 0;
+  for (; c < nch; ++c) {
     const int base = (fc + c) * kChunk;
+    if constexpr (kResiduals)
+      ckpt[((size_t)ckpt_off[t] + c) * kPix + p] = T;
     for (int i = p; i < kNFeat * kChunk; i += kPix)
       sf[i / kChunk][i % kChunk] =
           feats[(size_t)(i / kChunk) * cap + base + i % kChunk];
@@ -80,7 +95,13 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int cap,
       T *= 1.0f - alpha;
     }
     // also the barrier before the next chunk overwrites sf
-    if (!__syncthreads_or(T > 1e-4f)) break;
+    if (!__syncthreads_or(T > 1e-4f)) {
+      ++c;
+      break;
+    }
+  }
+  if constexpr (kResiduals) {
+    if (p == 0) n_live[t] = c;
   }
   float* o = out + (size_t)t * kOut * kPix + p;
   o[0 * kPix] = cr;
@@ -93,13 +114,19 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int cap,
 }  // namespace
 
 // feats: (rows >= 10, cap) f32, rows 0..9 used; starts, counts: (n_tiles,)
-// i32; out: (n_tiles, 5, 1024) f32.
+// i32; out: (n_tiles, 5, 1024) f32. ckpt_off (n_tiles,) i32, ckpt
+// (slots, 1024) f32 and n_live (n_tiles,) i32 are all null or all set.
 extern "C" int rasterize_fwd_launch(const float* feats, int cap,
                                     const int* starts, const int* counts,
                                     int n_tiles, int ntx, float* out,
-                                    void* stream) {
-  if (n_tiles > 0)
-    rasterize_fwd_kernel<<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
-        feats, cap, starts, counts, ntx, out);
+                                    const int* ckpt_off, float* ckpt,
+                                    int* n_live, void* stream) {
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  if (ckpt != nullptr)
+    rasterize_fwd_kernel<true><<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+        feats, cap, starts, counts, ntx, out, ckpt_off, ckpt, n_live);
+  else
+    rasterize_fwd_kernel<false><<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+        feats, cap, starts, counts, ntx, out, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """Synthetic driving scene: port of bilateral_driving_tpu/data/synthetic.py
 (`make_scene`, `make_batch`) on torch.Generator, plus scene parameters drawn
 straight from the seed (initialising from points, with its KNN scales, is
-training set-up and waits for the training slice).
+the CLI's set-up and waits for the CLI slice).
 
 The scene: a camera rig of `num_cams` cameras (yawed like nuScenes' six)
 driving forward along +z; a background of ground, two facades and clutter;
@@ -173,7 +173,8 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
             p["instance_embeds"] = encoders.embedding_init(num_inst, 16, g,
                                                            device)
             p["deform_net"] = deform.DeformNetwork(
-                embed_dim=16).reset_parameters(g).to(device)
+                embed_dim=16).reset_parameters(g).to(device).requires_grad_(
+                    False)
         params[name] = p
         statics[name] = {"instances_fv": d["frame_valid"],
                          "instances_size": d["sizes"]}
@@ -201,16 +202,19 @@ def pixel_viewdirs(h: int, w: int, K: torch.Tensor, c2w: torch.Tensor):
     return d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
 
 
-def make_batch(scene: SyntheticScene, image_idx: int, pixels=None):
-    """Trainer batch for one image, with `pixels` as its target (zeros by
-    default)."""
+def make_batch(scene: SyntheticScene, image_idx: int, pixels=None,
+               sky_mask=None, depth_map=None):
+    """Trainer batch for one image, with `pixels` as its target, `sky_mask`
+    (H, W) its sky pixels and `depth_map` (H, W) its lidar depths, 0 where
+    there is no return (all zeros by default)."""
     h, w = scene.height, scene.width
     c2w = scene.cam_to_worlds[image_idx]
     frame = image_idx // scene.num_cams
-    if pixels is None:
-        pixels = torch.zeros((h, w, 3), device=c2w.device)
+    zeros = lambda *shape: torch.zeros(shape, device=c2w.device)
     return {
-        "pixels": pixels,
+        "pixels": zeros(h, w, 3) if pixels is None else pixels,
+        "sky_masks": zeros(h, w) if sky_mask is None else sky_mask,
+        "lidar_depth_map": zeros(h, w) if depth_map is None else depth_map,
         "viewdirs": pixel_viewdirs(h, w, scene.K, c2w),
         "img_idx": image_idx,
         "frame_idx": frame,

@@ -15,6 +15,7 @@ import torch
 from ..train import trainer as trainer_mod
 
 
+@torch.no_grad()
 def render_images(cfg, state: trainer_mod.SceneState, statics, data,
                   image_indices, neighbor_map: Optional[Dict] = None) -> Dict:
     """Render the given image indices of `data` (anything with

@@ -1,5 +1,5 @@
 """Multi-scale bilateral-grid appearance: port of the multi-scale path of
-bilateral_driving_tpu/models/bilateral.py.
+bilateral_driving_tpu/models/bilateral.py, with its total-variation loss.
 
 Per-image grids of 3x4 colour affines, (N, 12, L, H, W), identity at init,
 sliced trilinearly at (x, y, gray(rgb)) with `grid_sample` semantics
@@ -164,3 +164,26 @@ def compose_affines(mats_list, rgb: torch.Tensor) -> torch.Tensor:
     for mats in mats_list:
         out = apply_affine(mats, out)
     return out
+
+
+def total_variation_loss(grids: torch.Tensor) -> torch.Tensor:
+    """Mean squared neighbour difference along each spatial axis of
+    grids (B, C, ...), summed over the axes and averaged over B."""
+    b = grids.shape[0]
+    tv = torch.zeros((), dtype=grids.dtype, device=grids.device)
+    for axis in range(2, grids.dim()):
+        if grids.shape[axis] < 2:
+            continue
+        d = torch.diff(grids, dim=axis)
+        tv = tv + torch.sum(d * d) / d[0].numel()
+    return tv / b
+
+
+def multiscale_tv_loss(params, grid_sizes: Sequence[Sequence[int]] =
+                       DEFAULT_MS_GRID) -> torch.Tensor:
+    """Per-level TV weighted 0.5 sqrt(X Y W)."""
+    loss = 0.0
+    for level, (gx, gy, gw) in zip(params["levels"], grid_sizes):
+        loss = loss + total_variation_loss(level["grids"]) * (
+            0.5 * (gx * gy * gw) ** 0.5)
+    return loss

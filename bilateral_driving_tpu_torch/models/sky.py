@@ -1,6 +1,8 @@
 """EnvLight sky, a learned cube map: port of the EnvLight half of
 bilateral_driving_tpu/models/sky.py. The trainer composites
-rgb + sky * (1 - opacity).
+rgb + sky * (1 - opacity); the texture's gradient is splatted by the
+cube-map kernel (ops/cubemap.sample_splat), as the JAX trainer's
+`envlight_color(..., interpret=...)` does.
 """
 from __future__ import annotations
 
@@ -21,4 +23,4 @@ def envlight_color(params, viewdirs: torch.Tensor) -> torch.Tensor:
     """Sky RGB from world view directions (no sigmoid or clamp)."""
     to_gl = torch.tensor(TO_OPENGL, dtype=viewdirs.dtype,
                          device=viewdirs.device)
-    return cubemap.sample(params["base"], viewdirs @ to_gl.T)
+    return cubemap.sample_splat(params["base"], viewdirs @ to_gl.T)

@@ -1,10 +1,15 @@
-"""Bilinear cube-map sampling: port of the forward half of
-bilateral_driving_tpu/ops/cubemap.py (`faces_uv`, `sample`). The texture
-gradient (`splat_grad`, a TPU kernel) belongs to the training slice.
+"""Bilinear cube-map sampling and its texture gradient: port of
+bilateral_driving_tpu/ops/cubemap.py (`faces_uv`, `sample`,
+`sample_splat_vjp`).
+
+`sample_splat` is `sample` whose backward splats the pixel cotangents into
+the texture gradient with the cube-map kernel (`cubemap_cuda.splat_grad`).
 """
 from __future__ import annotations
 
 import torch
+
+from . import cubemap_cuda
 
 
 def faces_uv(dirs: torch.Tensor):
@@ -60,3 +65,37 @@ def sample(base: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
             + corner(v0, u0 + 1) * (1 - wv) * wu
             + corner(v0 + 1, u0) * wv * (1 - wu)
             + corner(v0 + 1, u0 + 1) * wv * wu)
+
+
+def corner_data(dirs: torch.Tensor, res: int):
+    """Flat (face, u0, v0) int32 and (fu, fv) f32 per direction (..., 3)."""
+    d = dirs * torch.rsqrt(torch.clamp(
+        torch.sum(dirs * dirs, dim=-1, keepdim=True), min=1e-18))
+    face, u, v = faces_uv(d)
+    u0, v0, fu, fv = _corner_coords(u, v, res)
+    return (face.reshape(-1).contiguous(),
+            u0.to(torch.int32).reshape(-1).contiguous(),
+            v0.to(torch.int32).reshape(-1).contiguous(),
+            fu.reshape(-1).contiguous(), fv.reshape(-1).contiguous())
+
+
+class _SampleSplat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, base, dirs):
+        ctx.save_for_backward(dirs)
+        ctx.res = base.shape[1]
+        return sample(base, dirs)
+
+    @staticmethod
+    def backward(ctx, gout):
+        (dirs,) = ctx.saved_tensors
+        res = ctx.res
+        dz = cubemap_cuda.splat_grad(*corner_data(dirs, res),
+                                     gout.reshape(-1, 3).contiguous(), res)
+        return dz.reshape(6, 3, res, res).permute(0, 2, 3, 1), None
+
+
+def sample_splat(base: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """`sample` whose gradient reaches `base` only, through the splat
+    kernel (view directions are constants of the batch)."""
+    return _SampleSplat.apply(base, dirs)

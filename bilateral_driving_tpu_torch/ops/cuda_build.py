@@ -25,6 +25,10 @@ KERNELS = {
     "expand": [],
     # sigma and alpha must round like the plain version's separate operations
     "rasterize_fwd": ["--fmad=false"],
+    # alpha must round exactly as in rasterize_fwd, so the gate agrees
+    "rasterize_bwd": ["--fmad=false"],
+    "segsum": [],
+    "cubemap_splat": [],
 }
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -1,4 +1,4 @@
-"""Tiled rasterization pipeline, forward only: port of
+"""Differentiable tiled rasterization pipeline: port of
 bilateral_driving_tpu/ops/pipeline.py.
 
 projection -> opacity-aware tile spans -> entry offsets -> expansion kernel
@@ -7,7 +7,14 @@ per-tile ranges -> compositing kernel. The JAX package sorts with
 `lax.sort(num_keys=2)` on (key, gid); entries are produced in Gaussian-id
 order, so a stable sort on the key alone gives the same order.
 
-Gradients are a later slice: this module renders (no autograd Function).
+Projection is plain PyTorch and autograd differentiates it. From the
+per-Gaussian feature rows on (x, y, a, b, c, logop, r, g, b, depth, rows
+4-13 of the table the kernels read), `_Rasterize` (a
+torch.autograd.Function) carries the gradient: the compositing backward
+kernel gives per-entry gradients in the sorted order, the saved sort
+permutation puts them back in expansion (Gaussian-major) order, and the
+segment-sum kernel adds each Gaussian's entries. The JAX package re-sorts
+by Gaussian id for the same grouping.
 """
 from __future__ import annotations
 
@@ -15,8 +22,9 @@ import dataclasses
 
 import torch
 
-from . import binning, expand_cuda, projection, rasterize_cuda
+from . import binning, expand_cuda, projection, rasterize_cuda, segsum_cuda
 from .binning import TILE, num_tiles
+from .expand_cuda import FEAT0
 
 CAP_BUCKET = 2 ** 17
 
@@ -54,16 +62,63 @@ def autotune_capacity(num_isects: int, margin: float = 1.35,
     return -(-want // CAP_BUCKET) * CAP_BUCKET
 
 
-@torch.no_grad()
+class _Rasterize(torch.autograd.Function):
+    """feature rows (10, N) and span/id rows (6, N) -> (tiles (n_tiles, 5,
+    1024), sorted Gaussian ids). Only the feature rows are differentiable."""
+
+    @staticmethod
+    def forward(ctx, feat_rows, meta_rows, offsets, num_isects, cap: int,
+                ntx: int, n_tiles: int, width: int, height: int,
+                want_grad: bool):
+        n = offsets.shape[0] - 1
+        table_T = torch.cat([meta_rows[:FEAT0], feat_rows,
+                             meta_rows[FEAT0:]])
+        key, gid, feats = expand_cuda.expand_gather(
+            table_T, offsets, num_isects, cap, ntx, n_tiles, n)
+        key_s, perm = torch.sort(key, stable=True)
+        gid_s = gid[perm]
+        feats_s = feats[:, perm]
+        starts, counts = binning.tile_ranges(
+            binning.tiles_of_keys(key_s, n_tiles), num_isects, n_tiles, cap)
+        ctx.mark_non_differentiable(gid_s)
+        if not want_grad:
+            return (rasterize_cuda.rasterize_fwd(
+                feats_s, starts, counts, width, height), gid_s)
+        out, n_live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
+            feats_s, starts, counts, width, height, residuals=True)
+        ctx.save_for_backward(feats_s, starts, counts, n_live, ckpt_off,
+                              ckpt, perm, offsets)
+        ctx.dims = (width, height)
+        return out, gid_s
+
+    @staticmethod
+    def backward(ctx, g_out, _g_gid):
+        feats_s, starts, counts, n_live, ckpt_off, ckpt, perm, offsets = \
+            ctx.saved_tensors
+        width, height = ctx.dims
+        d_sorted = rasterize_cuda.rasterize_bwd(
+            feats_s, starts, counts, n_live, ckpt_off, ckpt,
+            g_out.contiguous(), width, height)
+        # un-sort (the inverse of the forward's gather feats[:, perm]) into
+        # Gaussian-major order, then one sum per Gaussian
+        d_rows = torch.empty_like(d_sorted)
+        d_rows[:, perm] = d_sorted
+        return (segsum_cuda.segment_sum(d_rows, offsets),) + (None,) * 9
+
+
 def rasterize(means, quats, scales, opacities, colors, viewmat, K,
               width: int, height: int,
-              cfg: RasterizeConfig = RasterizeConfig()):
-    """Tiled rasterization of N Gaussians into one camera.
+              cfg: RasterizeConfig = RasterizeConfig(), means2d_dummy=None):
+    """Tiled rasterization of N Gaussians into one camera, differentiable
+    in every floating input.
 
     Args:
       means/quats/scales: (N,3), (N,4), (N,3) world-space geometry.
       opacities: (N,) in [0, 1]; colors: (N, 3) RGB after SH.
       viewmat: (4, 4) world -> camera; K: (3, 3).
+      means2d_dummy: optional (N, 2) zeros added to the projected means;
+        its gradient is the per-Gaussian screen-space gradient (the
+        densification statistic).
     Returns:
       dict with rgb (H, W, 3), depth (H, W, 1) expected depth, alpha
       (H, W, 1), and info {means2d, depths, radii, valid, num_isects,
@@ -76,6 +131,9 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         means, quats, scales, viewmat, K, width, height,
         near_plane=cfg.near_plane, far_plane=cfg.far_plane,
         radius_clip=cfg.radius_clip, antialiased=cfg.antialiased)
+    means2d = proj.means2d
+    if means2d_dummy is not None:
+        means2d = means2d + means2d_dummy
     ntx, nty = num_tiles(width, height)
     n_tiles = ntx * nty
 
@@ -87,7 +145,7 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         # pixels beyond r_eff = sigma_max sqrt(2 ln(255 op_eff)) have
         # alpha < 1/255 and are dropped by the compositing gate, so
         # min(3 sigma, r_eff) spans give the same image with fewer entries
-        ln_gate = torch.log(255.0 * torch.clamp(op_eff, min=1e-12))
+        ln_gate = torch.log(255.0 * torch.clamp(op_eff.detach(), min=1e-12))
         sigma_max = radii.float() / 3.0
         r_eff = torch.ceil(sigma_max * torch.sqrt(
             2.0 * torch.clamp(ln_gate, min=0.0)))
@@ -95,28 +153,26 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         radii = torch.where(ln_gate > 0.0, radii, torch.zeros_like(radii))
         valid = valid & (radii > 0)
 
-    sp = binning.spans(proj.means2d, radii, valid, width, height)
+    sp = binning.spans(means2d.detach(), radii, valid, width, height)
     exp = binning.expand_light(sp.counts, cap)
-    table_T = torch.stack([
-        sp.tx0.float(), sp.ty0.float(), sp.span_w.float(),
-        exp.offsets[:-1].float(),
-        proj.means2d[:, 0], proj.means2d[:, 1],
+    dev = means.device
+    feat_rows = torch.stack([
+        means2d[:, 0], means2d[:, 1],
         proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2],
         logop,
         colors[:, 0], colors[:, 1], colors[:, 2],
         proj.depths,
-        torch.arange(n, dtype=torch.float32, device=means.device),
-        torch.zeros(n, dtype=torch.float32, device=means.device),
     ])
-    key, gid, feats = expand_cuda.expand_gather(
-        table_T, exp.offsets, exp.num_isects, cap, ntx, n_tiles, n)
-    key_s, perm = torch.sort(key, stable=True)
-    gid_s = gid[perm]
-    feats_s = feats[:, perm]
-    starts, counts = binning.tile_ranges(
-        binning.tiles_of_keys(key_s, n_tiles), exp.num_isects, n_tiles, cap)
-
-    out = rasterize_cuda.rasterize_fwd(feats_s, starts, counts, width, height)
+    meta_rows = torch.stack([
+        sp.tx0.float(), sp.ty0.float(), sp.span_w.float(),
+        exp.offsets[:-1].float(),
+        torch.arange(n, dtype=torch.float32, device=dev),
+        torch.zeros(n, dtype=torch.float32, device=dev),
+    ])
+    want_grad = torch.is_grad_enabled() and feat_rows.requires_grad
+    out, gid_s = _Rasterize.apply(feat_rows, meta_rows, exp.offsets,
+                                  exp.num_isects, cap, ntx, n_tiles, width,
+                                  height, want_grad)
     rgb, depth_acc, alpha = unpack(out, width, height)
     depth = depth_acc / torch.clamp(alpha, min=1e-10)  # gsplat "ED" depth
     return {
@@ -124,7 +180,7 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         "depth": depth[..., None],
         "alpha": alpha[..., None],
         "info": {
-            "means2d": proj.means2d,
+            "means2d": means2d,
             "depths": proj.depths,
             "radii": proj.radii,
             "valid": proj.valid,

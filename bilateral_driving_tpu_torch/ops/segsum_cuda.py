@@ -1,0 +1,106 @@
+"""Ragged per-Gaussian segment sums: port of
+bilateral_driving_tpu/ops/segsum_pallas.py (`segment_sum`,
+`segment_sum_rows`).
+
+The rasterization backward needs, for every Gaussian g, the sum of its
+per-intersection gradient columns over the contiguous range
+[offsets[g], offsets[g + 1]) of the Gaussian-major (un-sorted) entries. Both
+wrappers launch the CUDA kernel `csrc/segsum.cu` on CUDA tensors, each with
+its own launch counter, and run `segment_sum_plain` on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+OUT_ROWS = 16      # segment_sum_rows' output rows, the table's row count
+MAX_ROWS = 16      # input rows one launch takes
+
+
+def segment_ids(offsets, length: int):
+    """(length,) int64 segment of each entry, -1 past offsets[-1]."""
+    m = torch.arange(length, device=offsets.device)
+    seg = torch.searchsorted(offsets.long(), m, right=True) - 1
+    return torch.where(m < offsets[-1].long(), seg, torch.full_like(seg, -1))
+
+
+def segment_sum_plain(rows, offsets, n_out: int | None = None,
+                      row0: int = 0):
+    """Sums of each input row (a sequence of (cap,) tensors) over the
+    segments, by index_add_ at each entry's segment id. Output row
+    row0 + j holds rows[j]'s sums; other rows of the n_out are zero."""
+    n = offsets.shape[0] - 1
+    n_out = len(rows) if n_out is None else n_out
+    dev = offsets.device
+    seg = segment_ids(offsets, rows[0].shape[0])
+    keep = seg >= 0
+    out = torch.zeros((n_out, n), dtype=torch.float32, device=dev)
+    data = torch.stack(list(rows))[:, keep]
+    out[row0:row0 + len(rows)].index_add_(1, seg[keep], data)
+    return out
+
+
+def _check(rows, offsets, what: str):
+    cuda_build.require_cuda(offsets, *rows)
+    cap = rows[0].shape[0]
+    if len(rows) > MAX_ROWS:
+        raise ValueError(f"{what}: at most {MAX_ROWS} input rows")
+    if any(r.dtype != torch.float32 or r.shape != (cap,)
+           or not r.is_contiguous() for r in rows):
+        raise ValueError(f"{what}: need contiguous (cap,) f32 rows")
+    if offsets.dtype != torch.int32 or not offsets.is_contiguous():
+        raise ValueError(f"{what}: need contiguous (N+1,) int32 offsets "
+                         "clamped to cap")
+
+
+def _launch(rows, offsets, n_out: int, row0: int):
+    n = offsets.shape[0] - 1
+    dev = offsets.device
+    out = torch.empty((n_out, n), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
+    fn = cuda_build.load("segsum").segsum_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, i, p, i, p, p]
+    fn.restype = ctypes.c_int
+    cuda_build.check(fn(
+        ptrs, len(rows), row0, n_out, offsets.data_ptr(), n, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "segsum")
+    return out
+
+
+def segment_sum(data, offsets):
+    """data (R, cap) f32 in Gaussian-major order, offsets (N+1,) int32
+    non-decreasing and clamped to cap -> (R, N) per-segment sums."""
+    if data.device.type == "cpu":
+        return segment_sum_plain(list(data), offsets)
+    if data.dim() != 2 or not data.is_contiguous():
+        raise ValueError("segment_sum: need contiguous (R, cap) data")
+    rows = list(data)
+    _check(rows, offsets, "segment_sum")
+    out = _launch(rows, offsets, len(rows), 0)
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
+def segment_sum_rows(rows, offsets, row0: int = 0):
+    """Split input: `rows` is a sequence of R (cap,) f32 tensors. Returns
+    (16, N) where row row0 + j sums rows[j] and the other rows are zero."""
+    rows = list(rows)
+    if row0 < 0 or row0 + len(rows) > OUT_ROWS:
+        raise ValueError(f"segment_sum_rows: rows {row0}..{row0 + len(rows)} "
+                         f"outside the {OUT_ROWS} output rows")
+    if rows[0].device.type == "cpu":
+        return segment_sum_plain(rows, offsets, OUT_ROWS, row0)
+    _check(rows, offsets, "segment_sum_rows")
+    out = _launch(rows, offsets, OUT_ROWS, row0)
+    segment_sum_rows.launches += 1
+    return out
+
+
+segment_sum_rows.launches = 0

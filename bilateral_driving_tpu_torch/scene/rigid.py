@@ -1,5 +1,5 @@
-"""Rigid vehicle nodes: port of the render half of
-bilateral_driving_tpu/scene/rigid.py.
+"""Rigid vehicle nodes: port of bilateral_driving_tpu/scene/rigid.py
+(rendering and the out-of-box cull of refinement).
 
 Gaussians live in instance-local frames; per-frame, per-instance pose
 tracks (quats (F, I, 4), trans (F, I, 3)) carry them to world. Test views
@@ -68,3 +68,9 @@ def gaussians(params, statics, mask, cam_origin, step: int, frame: int,
             * valid[point_ids.long()] * mask)
     return G.Gaussians(means, torch.exp(params["log_scales"]), quats, opac,
                        rgbs)
+
+
+def out_of_bound_mask(params, statics) -> torch.Tensor:
+    """Points outside their instance box."""
+    sizes = statics["instances_size"][statics["point_ids"].long()]
+    return torch.any(torch.abs(params["means"]) > sizes / 2.0, dim=-1)

@@ -1,17 +1,23 @@
-"""Scene forward pass: port of the render half of
-bilateral_driving_tpu/train/trainer.py (`TrainerConfig` fields the forward
-reads, `gaussian_classes`, `collect_gaussians`, `merge_statics`, `forward`).
+"""Scene trainer: port of bilateral_driving_tpu/train/trainer.py for the
+flagship configuration (configs.flagship_config).
 
 forward = per-class Gaussians -> concat -> tiled rasterize -> EnvLight sky
-compositing -> multi-scale bilateral appearance. Only the flagship
-configuration (configs.flagship_config) is ported; other branches raise
-NotImplementedError naming the slice they wait for. Losses, the optimizer
-and densification belong to the training slice.
+compositing -> multi-scale bilateral appearance. A training step is
+compute_grads (forward, the loss stack and autograd, with a zeros
+`means2d_dummy` whose gradient is the per-Gaussian screen gradient) then
+apply_grads_and_refine (Adam per parameter group at its scheduled rate,
+densification statistics and, every refine_interval steps, refinement).
+Other configurations' branches raise NotImplementedError naming the slice
+they wait for.
+
+The JAX trainer is pure; here the state is updated in place: the optimizer
+steps the parameter tensors and refinement writes into them, so the
+optimizer keeps its hold on every parameter.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import torch
 
@@ -19,6 +25,7 @@ from ..models import bilateral, sky as sky_mod
 from ..ops import pipeline
 from ..ops.camera import viewmat_from_c2w
 from ..scene import background, deformable, nodes, rigid
+from . import density, losses, schedules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +56,63 @@ class TrainerConfig:
     num_images: int = 1
     num_frames: int = 1
 
+    # loss weights
+    w_rgb: float = 0.8
+    w_ssim: float = 0.2
+    w_mask: float = 0.05
+    w_depth: float = 0.01
+    lidar_w_decay: float = -1.0
+    w_affine: float = 0.00001
+    w_affine_inverse: float = 0.0
+    w_opacity_entropy: float = 0.0
+    w_inverse_depth_smoothness: float = 0.0
+    depth_loss_type: str = "l1"
+    depth_inverse: bool = False
+    depth_normalize: bool = False
+    depth_reduction: str = "mean_on_hit"
+    mask_loss_type: str = "safe_bce"       # safe_bce | bce
+    max_depth: float = 80.0
+
+    # per-class regularisers: (("name", (("key", value), ...)), ...)
+    background_reg: tuple = ()
+    w_rigid_temporal: float = 0.0
     # dynamic-region loss weight: > 0 adds a dynamic-classes-only opacity
     # render to the training forward
     w_dynamic_region: float = 0.0
+    dynamic_region_start_from: int = 0
+
+    # density control
+    density: density.DensityConfig = density.DensityConfig()
+    scene_scale: float = 1.0
+    scene_origin: tuple = (0.0, 0.0, 0.0)
+
+    # optimisation: (group, lr_init, lr_final, warmup_steps), the JAX
+    # package's table; "means" and "velocity" are scaled by scene_scale
+    lr: tuple = (
+        ("means", 1.6e-4, 1.6e-6, 0),
+        ("means_deform", 3.2e-4, 3.2e-6, 0),
+        ("means_smpl", 4.8e-4, 4.8e-6, 0),
+        ("log_scales", 5e-3, None, 0),
+        ("quats", 1e-3, None, 0),
+        ("logit_opacities", 5e-2, None, 0),
+        ("sh_dc", 2.5e-3, None, 0),
+        ("sh_rest", 1.25e-4, None, 0),
+        ("instances_quats", 1e-5, 5e-6, 0),
+        ("instances_trans", 5e-4, 1e-4, 0),
+        ("smpl_quats", 5e-5, 1e-5, 0),
+        ("velocity", 1e-3, None, 0),
+        ("taus", 8e-4, 8e-6, 0),
+        ("log_betas", 2e-3, None, 0),
+        ("sky", 1e-2, None, 0),
+        ("affine", 6e-4, 3e-5, 1000),
+        ("camera_opt", 1e-5, None, 0),
+        ("deform_net", 8e-3, 8e-4, 0),
+        ("deform_net_bg", 8e-4, 8e-6, 0),
+        ("instance_embeds", 1e-3, 1e-4, 0),
+        ("voxel_w_correction", 1e-4, 1e-5, 10000),
+        ("other", 1e-3, None, 0),
+    )
+    max_steps: int = 30000
 
 
 class SceneState(NamedTuple):
@@ -73,7 +134,7 @@ def _check_flagship(cfg: TrainerConfig):
     if cfg.use_smpl:
         raise _later("SMPLNodes", "the SMPL slice")
     if cfg.use_camera_opt or cfg.use_camera_perturb:
-        raise _later("camera refinement", "the training slice")
+        raise _later("camera refinement", "the camera-refinement slice")
     if cfg.sky_model != "envlight":
         raise _later(f"sky_model={cfg.sky_model!r}", "the sky-MLP slice")
     if cfg.affine_model != "multiscale_bilateral":
@@ -124,16 +185,16 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
     return nodes.concat_bundles(bundles)
 
 
-@torch.no_grad()
 def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
             in_test_set: bool = False, novel_view: bool = False,
-            neighbor_idx=None):
-    """Render one camera.
+            neighbor_idx=None, means2d_dummy=None):
+    """Render one camera, differentiably where grad mode is on.
 
     batch: camera_to_world (4, 4), intrinsics (3, 3), pixels (H, W, 3),
     viewdirs (H, W, 3) world view directions, img_idx, frame_idx (ints) and
     normed_time (float). On test views, `neighbor_idx` lists the training
-    images whose bilateral grids are averaged.
+    images whose bilateral grids are averaged. `means2d_dummy`: (N, 2)
+    zeros whose gradient is the screen-space gradient of each Gaussian.
     """
     h, w = batch["pixels"].shape[:2]
     c2w = batch["camera_to_world"]
@@ -149,7 +210,8 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
         isect_capacity=cfg.isect_capacity)
     out = pipeline.rasterize(
         merged.means, merged.quats, merged.scales, merged.opacities,
-        merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg)
+        merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg,
+        means2d_dummy=means2d_dummy)
 
     rgb_gaussians = torch.clamp(out["rgb"], max=1.0)
     opacity = out["alpha"]
@@ -165,12 +227,13 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
             and not in_test_set and not novel_view):
         # dynamic-classes-only opacity: zero Background opacities render
         # exactly like leaving the Background out
-        dyn_op = torch.where(labels != nodes.NODE_CLASS_IDS["Background"],
-                             merged.opacities,
-                             torch.zeros_like(merged.opacities))
-        dyn = pipeline.rasterize(
-            merged.means, merged.quats, merged.scales, dyn_op, merged.rgbs,
-            viewmat, batch["intrinsics"], w, h, rcfg)
+        with torch.no_grad():
+            dyn_op = torch.where(
+                labels != nodes.NODE_CLASS_IDS["Background"],
+                merged.opacities, torch.zeros_like(merged.opacities))
+            dyn = pipeline.rasterize(
+                merged.means, merged.quats, merged.scales, dyn_op,
+                merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg)
         outputs["Dynamic_opacity"] = dyn["alpha"]
 
     rgb_sky = sky_mod.envlight_color(params["Sky"], batch["viewdirs"])
@@ -185,3 +248,297 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     outputs["affine_mats"] = mats_list
     outputs["rgb"] = bilateral.compose_affines(mats_list, original_rgb)
     return outputs
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def _regs(pairs) -> dict:
+    """(("name", (("key", value), ...)), ...) config tuples -> dict."""
+    return {k: dict(v) for k, v in pairs}
+
+
+def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
+                   batch, step: int) -> Dict[str, torch.Tensor]:
+    """The flagship's loss stack, each term weighted."""
+    if cfg.w_opacity_entropy > 0 or cfg.w_inverse_depth_smoothness > 0:
+        raise _later("opacity-entropy and depth-smoothness losses",
+                     "the loss-variants slice")
+    if cfg.w_affine_inverse > 0:
+        raise _later("the bilateral inverse (cycle) loss",
+                     "the loss-variants slice")
+    if cfg.use_rigid and cfg.w_rigid_temporal > 0:
+        raise _later("rigid temporal smoothness", "the loss-variants slice")
+    loss = {}
+    pixels = batch["pixels"]
+    if "egocar_masks" in batch:
+        valid = 1.0 - batch["egocar_masks"]
+    else:
+        valid = torch.ones(pixels.shape[:2], device=pixels.device)
+    gt_rgb = pixels * valid[..., None]
+    pred_rgb = outputs["rgb"] * valid[..., None]
+    loss["rgb"] = cfg.w_rgb * losses.l1(gt_rgb, pred_rgb)
+    loss["ssim"] = cfg.w_ssim * (1.0 - losses.ssim(gt_rgb, pred_rgb))
+
+    if cfg.w_mask > 0 and "sky_masks" in batch:
+        gt_occ = (1.0 - batch["sky_masks"]) * valid
+        pred_occ = outputs["opacity"][..., 0] * valid
+        bce = losses.bce if cfg.mask_loss_type == "bce" else losses.safe_bce
+        loss["sky_opacity"] = cfg.w_mask * bce(pred_occ, gt_occ)
+
+    if cfg.w_depth > 0 and "lidar_depth_map" in batch:
+        decay = (torch.exp(torch.tensor(-step / 8000.0 * cfg.lidar_w_decay))
+                 if cfg.lidar_w_decay > 0 else 1.0)
+        lidar = batch["lidar_depth_map"]
+        hit = (lidar > 0).to(torch.float32) * valid
+        loss["depth"] = cfg.w_depth * decay * losses.depth_loss(
+            outputs["depth"][..., 0], lidar, hit,
+            loss_type=cfg.depth_loss_type, normalize=cfg.depth_normalize,
+            use_inverse_depth=cfg.depth_inverse, max_depth=cfg.max_depth,
+            reduction=cfg.depth_reduction)
+
+    if cfg.w_dynamic_region > 0 and "Dynamic_opacity" in outputs:
+        # masked L1 over the pixels the dynamic-only render covers
+        dyn_mask = ((outputs["Dynamic_opacity"][..., 0] > 0.2)
+                    .to(torch.float32) * valid)
+        cnt = torch.sum(dyn_mask)
+        l1_sum = torch.sum(torch.abs(gt_rgb - pred_rgb) * dyn_mask[..., None])
+        active = (step > cfg.dynamic_region_start_from) & (cnt > 0)
+        loss["vehicle_region_rgb"] = torch.where(
+            active, cfg.w_dynamic_region * l1_sum
+            / torch.clamp(cnt * 3.0, min=1.0), torch.zeros_like(l1_sum))
+
+    loss["affine"] = cfg.w_affine * bilateral.multiscale_tv_loss(
+        params["Affine"], cfg.ms_grid)
+
+    if cfg.background_reg:
+        regs = _regs(cfg.background_reg)
+        regs.pop("velocity_reg", None)          # PVG backgrounds only
+        for k, v in background.reg_loss(params["Background"],
+                                        masks["Background"], step,
+                                        regs).items():
+            loss[f"Background_{k}"] = v
+    return loss
+
+
+# --------------------------------------------------------------------------
+# parameters and optimizer
+# --------------------------------------------------------------------------
+
+
+# per-point and per-track keys that name their own parameter group
+_KNOWN = frozenset({"means", "log_scales", "quats", "logit_opacities",
+                    "sh_dc", "sh_rest", "instances_quats", "instances_trans",
+                    "smpl_quats", "velocity", "taus", "log_betas"})
+
+
+def label_for_path(name: str) -> str:
+    """Parameter group of a leaf from its "/"-joined path of keys (the JAX
+    package's `_label_for_path`)."""
+    keys = name.split("/")
+    top = keys[0]
+    if top == "Sky":
+        return "sky"
+    if top == "Affine":
+        return "affine"
+    if top in ("CamPose", "CamPosePerturb"):
+        return "camera_opt"
+    for k in keys:
+        if k == "means" and top == "DeformableNodes":
+            return "means_deform"
+        if k == "means" and top == "SMPLNodes":
+            return "means_smpl"
+        if k in _KNOWN:
+            return k
+        if k == "deform_net":
+            return "deform_net_bg" if top == "Background" else "deform_net"
+        if k in ("instance_embeds", "voxel_w_correction"):
+            return k
+    return "other"
+
+
+def named_leaves(params, prefix: str = ""):
+    """("/"-joined path, tensor) of every trainable leaf: dicts and lists
+    recurse, a module contributes its named parameters under its key."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            yield from named_leaves(v, f"{prefix}{i}/")
+    elif isinstance(params, torch.nn.Module):
+        for name, p in params.named_parameters():
+            yield prefix + name, p
+    elif isinstance(params, torch.Tensor) and params.is_floating_point():
+        yield prefix[:-1], params
+
+
+def make_schedules(cfg: TrainerConfig) -> Dict[str, Any]:
+    """Group -> learning-rate schedule of the optimizer's update count."""
+    radius_scaled = ("means", "velocity")
+    out = {}
+    for name, init, final, warmup in cfg.lr:
+        scale = cfg.scene_scale if name in radius_scaled else 1.0
+        out[name] = schedules.make_schedule(schedules.LRConfig(
+            lr_init=init * scale,
+            lr_final=(final * scale) if final else final,
+            max_steps=cfg.max_steps, warmup_steps=warmup, lr_pre_warmup=0.0))
+    return out
+
+
+def make_optimizer(cfg: TrainerConfig, params) -> torch.optim.Adam:
+    """Adam (eps 1e-15) with one parameter group per label; each group's
+    `lr` is set from its schedule before every update."""
+    groups: Dict[str, list] = {}
+    for name, p in named_leaves(params):
+        groups.setdefault(label_for_path(name), []).append(p)
+    known = {name for name, *_ in cfg.lr}
+    missing = set(groups) - known
+    if missing:
+        raise ValueError(f"no learning rate for groups {sorted(missing)}")
+    return torch.optim.Adam(
+        [{"params": ps, "label": name, "lr": 0.0}
+         for name, ps in groups.items()], eps=1e-15)
+
+
+@dataclasses.dataclass
+class TrainerState:
+    """Mutable training state. `updates` counts the optimizer's own updates
+    (the schedules follow it, as optax's scale_by_schedule counts its own),
+    `step` the training step (refinement and the SH degree follow it)."""
+    params: Any
+    aux: Any
+    masks: Any
+    stats: Any            # class name -> density.DensityStats
+    opt: torch.optim.Adam
+    step: int
+    generator: torch.Generator
+    updates: int = 0
+
+
+def init_state(cfg: TrainerConfig, params, masks, aux=None, step: int = 0,
+               generator: torch.Generator | None = None) -> TrainerState:
+    """Every floating tensor of `params` becomes a trainable leaf; fresh
+    Adam moments and zero density statistics."""
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    dev = masks["Background"].device
+    stats = {name: density.DensityStats.zeros(masks[name].shape[0], dev)
+             for name in gaussian_classes(cfg)}
+    aux = {**{name: {} for name in gaussian_classes(cfg)}, **(aux or {})}
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return TrainerState(params, aux, masks, stats, make_optimizer(cfg, params),
+                        step, generator)
+
+
+# --------------------------------------------------------------------------
+# step
+# --------------------------------------------------------------------------
+
+
+def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch):
+    """Gradients of one image: (total, loss dict, outputs, grads by leaf
+    path, screen-space gradient (N, 2) of the concatenated Gaussians)."""
+    full_statics = merge_statics(statics, state.aux)
+    n_total = sum(state.masks[n].shape[0] for n in gaussian_classes(cfg))
+    dev = state.masks["Background"].device
+    leaves = list(named_leaves(state.params))
+    with torch.enable_grad():
+        dummy = torch.zeros((n_total, 2), device=dev, requires_grad=True)
+        outputs = forward(cfg, state.params, full_statics, state.masks, batch,
+                          state.step, means2d_dummy=dummy)
+        loss = compute_losses(cfg, state.params, full_statics, state.masks,
+                              outputs, batch, state.step)
+        total = sum(loss.values())
+        grads = torch.autograd.grad(total, [p for _, p in leaves] + [dummy],
+                                    allow_unused=True)
+    g_params = {name: (torch.zeros_like(p) if g is None else g)
+                for (name, p), g in zip(leaves, grads[:-1])}
+    g_dummy = grads[-1] if grads[-1] is not None else torch.zeros_like(dummy)
+    return total.detach(), {k: v.detach() for k, v in loss.items()}, \
+        outputs, g_params, g_dummy
+
+
+@torch.no_grad()
+def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
+                           batch, total, loss_dict, outputs, g_params,
+                           g_dummy):
+    """Optimizer update, density statistics and periodic refinement, in
+    place. Returns (state, metrics) with state.step advanced by one."""
+    scheds = make_schedules(cfg)
+    for name, p in named_leaves(state.params):
+        p.grad = g_params[name]
+    for group in state.opt.param_groups:
+        group["lr"] = scheds[group["label"]](state.updates)
+    state.opt.step()
+    state.opt.zero_grad(set_to_none=True)
+    state.updates += 1
+
+    # screen-space statistics, scaled by (W/2, H/2) as the reference does
+    # before the norm (densify_grad_thresh is tuned for that scale)
+    radii = outputs["info"]["radii"]
+    h, w = batch["pixels"].shape[:2]
+    last_size = float(max(h, w))
+    grad_scale = torch.tensor([w / 2.0, h / 2.0], device=g_dummy.device)
+    offset = 0
+    for name in gaussian_classes(cfg):
+        c = state.masks[name].shape[0]
+        state.stats[name] = density.accumulate_stats(
+            state.stats[name], g_dummy[offset:offset + c] * grad_scale,
+            radii[offset:offset + c], last_size)
+        offset += c
+
+    step = state.step
+    refine_dropped = torch.zeros((), dtype=torch.long,
+                                 device=g_dummy.device)
+    if step % cfg.density.refine_interval == 0 and step > 0:
+        full_statics = merge_statics(statics, state.aux)
+        for name in gaussian_classes(cfg):
+            params = state.params[name]
+            extra_cull = (rigid.out_of_bound_mask(params, full_statics[name])
+                          if name in ("RigidNodes", "DeformableNodes")
+                          else None)
+            p, a, alive, touched, info = density.refine(
+                state.generator, params, state.aux[name], state.masks[name],
+                state.stats[name], step, cfg.scene_scale, cfg.density,
+                num_train_images=cfg.num_images, extra_cull=extra_cull)
+            for k in density.PER_POINT_KEYS & set(params):
+                params[k].copy_(p[k])
+            state.aux[name] = a
+            state.masks[name] = alive
+            state.stats[name] = density.DensityStats.zeros(alive.shape[0],
+                                                           alive.device)
+            density.reset_moments(state.opt, params, touched)
+            if info["opacity_reset"]:
+                density.reset_moments(state.opt, params,
+                                      torch.ones_like(touched),
+                                      also_key="logit_opacities")
+            refine_dropped = refine_dropped + info["dropped"]
+
+    metrics = {"loss": total,
+               "psnr": losses.psnr(outputs["rgb"].detach(), batch["pixels"]),
+               "isect_overflow": outputs["info"]["overflow"].to(torch.float32),
+               "num_isects": outputs["info"]["num_isects"].to(torch.float32),
+               "refine_dropped": refine_dropped.to(torch.float32),
+               "nonfinite_params": sum(
+                   torch.sum(~torch.isfinite(p)).to(torch.float32)
+                   for _, p in named_leaves(state.params))}
+    metrics.update({f"loss/{k}": v for k, v in loss_dict.items()})
+    for name in gaussian_classes(cfg):
+        metrics[f"num_points/{name}"] = torch.sum(state.masks[name]).to(
+            torch.float32)
+    state.step += 1
+    return state, metrics
+
+
+def train_step(cfg: TrainerConfig, statics, state: TrainerState, batch):
+    """One optimization step: gradients, Adam update, density statistics
+    and (every refine_interval steps) refinement. Updates `state` in place
+    and returns (state, metrics)."""
+    total, loss_dict, outputs, g_params, g_dummy = compute_grads(
+        cfg, statics, state, batch)
+    return apply_grads_and_refine(cfg, statics, state, batch, total,
+                                  loss_dict, outputs, g_params, g_dummy)

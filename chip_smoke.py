@@ -3,9 +3,10 @@
 
 Renders the flagship omnire_ms_bilateral scene at full width on one NVIDIA
 GPU through the port's entry points (eval.render_loop.render_images and
-train.trainer.forward), and holds every hand-written kernel of that path
-against its plain PyTorch version. Phases, each printed on its own line
-with its result and elapsed seconds:
+train.trainer.forward), takes flagship training steps on it
+(train.trainer.train_step), and holds every hand-written kernel of those
+paths against its plain PyTorch version. Phases, each printed on its own
+line with its result and elapsed seconds:
 
   env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, the card
   build     nvcc builds of csrc/*.cu, cold and warm
@@ -14,14 +15,38 @@ with its result and elapsed seconds:
             16 rigid x 4,096 and 8 deformable x 4,096 points, EnvLight
             R=1024, multi-scale bilateral grids over 240 images; the
             intersection capacity from probe_num_isects + autotune_capacity
-  kernels   each kernel against its plain version at the main path's shapes
+  kernels   each render kernel against its plain version at the main
+            path's shapes
   render    6 frames (train views, test views with neighbour-averaged
             affines, one novel view) with the launch counters read per frame
   reference one frame again through the plain versions, compared
-  times     CUDA-event times of each kernel, its plain version and its bound
+  times     CUDA-event times of each render kernel, its plain version and
+            its bound
   profile   one frame under torch.profiler: device busy time, idle share,
             the number of device operations and those that take the most
             device time
+  targets   training targets: renders of a second state drawn from another
+            seed, 1 - its alpha as the sky mask and 5% of its depths
+            where alpha > 0.5 as the lidar map
+  grads     the first step's gradients through the kernels against the
+            same step with every kernel reference pointed at its plain
+            version
+  train     4 training steps from step 3398 (3400 refines), the launch
+            counters read per step
+  train_steps    the ordinary step 3399 timed 5 times, each from a copy
+            of the state saved before it (the synthetic state blows up
+            within five steps, so the main path cannot simply run on):
+            median, spread; the first and the refining step of the train
+            phase apart
+  train_profile  the same step once more under torch.profiler: device busy
+            time, idle share of the median ordinary step, device
+            operations, top items
+  train_kernels  each training kernel against its plain version on inputs
+            captured from the train phase; segment_sum_rows, which the
+            main path does not call, on the main path's segment_sum rows
+  train_times    CUDA-event times of each training kernel, its plain
+            version, one library call that computes the same function, and
+            its bound
 
 Then a `kernels` JSON line, the card's name and power limit as nvidia-smi
 gives them, and, last, {"ok": true, "device": {...}}. Any failed check
@@ -34,6 +59,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import importlib.util
 import json
 import math
@@ -54,6 +81,20 @@ TRAIN_VIEWS = (0, 13, 62)         # image = frame * NUM_CAMS + camera
 TEST_VIEWS = (60, 125)
 RASTER_ATOL, RASTER_RTOL = 1e-4, 1e-5   # kernel vs plain, per element
 FRAME_ATOL = 1e-4                       # rendered rgb, kernels vs plain
+# training: images of training frames (frame = image // 6, frames 10, 20,
+# ... are test frames), the first step, and how often the ordinary step
+# after it is timed
+TRAIN_IMAGES = (1, 14, 33, 75)
+TRAIN_STEP0 = 3398
+TIMED_STEPS = 5
+# kernel vs plain, per output row as the relative norm of the difference:
+# compositing backward (sums over 1,024 pixels in other orders), segment
+# sums and the splat (a few adds per element, the plain versions' and the
+# splat's in atomic order)
+BWD_RTOL = 1e-4
+SUM_RTOL = 1e-5
+# one step's gradients, kernels vs plain, relative norm per parameter leaf
+GRADS_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
 # The least work each kernel must do on its inputs, for its bound.
@@ -67,6 +108,14 @@ EXPAND_ROWS_READ = 15
 # then exp, clamp and the 1/255 gate (3); per pair past the gate, the
 # weight, 4 channels x (multiply, add) and the transmittance update (10).
 ENTRY_OPS, PAIR_OPS, BLEND_OPS = 4, 13, 10
+# Compositing backward, in f32 operations: per live (entry, pixel) pair the
+# forward's sigma, exp, clamp and gate once (13); per pair past the gate
+# G = colour . cotangent (9), the weight (1), the suffix bookkeeping (4),
+# d_alpha (4), d_sigma (1), the six geometry terms (11), the four colour
+# terms (4) and the ten sums over pixels (10).
+BWD_BLEND_OPS = 44
+FEAT_BYTES = 4 * 10                    # one entry's 10 feature rows
+PIX_BYTES = 4 * 1024                   # one tile plane of f32
 
 
 class SmokeError(RuntimeError):
@@ -91,17 +140,45 @@ def nvidia_smi() -> str:
 
 
 @contextlib.contextmanager
-def kernels_replaced(pipeline, expand_gather, rasterize_fwd):
-    """Point the pipeline's two kernel calls at stand-ins for a block. The
-    pipeline reaches the kernels through its module references only."""
-    real = (pipeline.expand_cuda, pipeline.rasterize_cuda)
-    pipeline.expand_cuda = types.SimpleNamespace(expand_gather=expand_gather)
-    pipeline.rasterize_cuda = types.SimpleNamespace(
-        rasterize_fwd=rasterize_fwd)
+def patched(*changes):
+    """Set (object, attribute, value) for a block. The pipeline reaches its
+    kernels through its module references (expand_cuda, rasterize_cuda,
+    segsum_cuda) and the cube-map backward through cubemap.cubemap_cuda,
+    so replacing those points every kernel call at a stand-in."""
+    real = [(obj, name, getattr(obj, name)) for obj, name, _ in changes]
+    for obj, name, value in changes:
+        setattr(obj, name, value)
     try:
         yield
     finally:
-        pipeline.expand_cuda, pipeline.rasterize_cuda = real
+        for obj, name, value in real:
+            setattr(obj, name, value)
+
+
+def kernels_replaced(pipeline, expand_gather, rasterize_fwd):
+    """Point the pipeline's two render kernel calls at stand-ins."""
+    return patched(
+        (pipeline, "expand_cuda",
+         types.SimpleNamespace(expand_gather=expand_gather)),
+        (pipeline, "rasterize_cuda",
+         types.SimpleNamespace(rasterize_fwd=rasterize_fwd)))
+
+
+def capturing(captured, name, fn):
+    """fn, recording the arguments of its first call under `name`."""
+    def wrapped(*a, **kw):
+        captured.setdefault(name, (a, kw))
+        return fn(*a, **kw)
+    return wrapped
+
+
+def rel_norm(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def row_rel_norms(a, b) -> list:
+    """rel_norm of each row of the leading axis."""
+    return [rel_norm(a[r], b[r]) for r in range(b.shape[0])]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -117,6 +194,411 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_profile(fn, median_ms: float) -> dict:
+    """Device busy time, idle share of `median_ms`, device operation count
+    and top device items of one call of fn under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+    # device-side events only (kernels, copies): the operator events above
+    # them carry the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return dict(
+        profiled_ms=round(wall_ms, 3),
+        device_busy_ms=round(busy_ms, 3) if busy_ms else "not measured",
+        device_ops=sum(e.count for e in events),
+        device_idle_share_of_median=(round(1.0 - busy_ms / median_ms, 4)
+                                     if busy_ms else "not measured"),
+        top_device_ms=[[e.key[:70], round(e.self_device_time_total / 1e3, 3),
+                        e.count] for e in top])
+
+
+def snapshot(state):
+    """A copy of a training state, its generator apart (torch.Generator
+    does not copy)."""
+    return copy.deepcopy({f.name: getattr(state, f.name)
+                          for f in dataclasses.fields(state)
+                          if f.name != "generator"})
+
+
+def restore(saved, generator):
+    """A fresh training state from a snapshot; the optimizer of the copy
+    holds the copy's parameters."""
+    from bilateral_driving_tpu_torch.train import trainer
+
+    return trainer.TrainerState(**copy.deepcopy(saved), generator=generator)
+
+
+def training(args, cfg, scene, state, statics, dev) -> list:
+    """The training phases (targets .. train_profile); returns the four
+    training kernels' entries of the `kernels` line."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.ops import (cubemap, cubemap_cuda,
+                                                 expand_cuda, pipeline,
+                                                 rasterize_cuda, segsum_cuda)
+    from bilateral_driving_tpu_torch.train import trainer
+
+    wrappers = {"expand": expand_cuda.expand_gather,
+                "rasterize_fwd": rasterize_cuda.rasterize_fwd,
+                "rasterize_bwd": rasterize_cuda.rasterize_bwd,
+                "segment_sum": segsum_cuda.segment_sum,
+                "segment_sum_rows": segsum_cuda.segment_sum_rows,
+                "splat_grad": cubemap_cuda.splat_grad}
+    # the main path's kernels: its backward sums segments with segment_sum
+    path = [k for k in wrappers if k != "segment_sum_rows"]
+
+    def counts():
+        return {k: f.launches for k, f in wrappers.items()}
+
+    # ---- targets: renders of a second state drawn from another seed
+    t0 = time.perf_counter()
+    g2 = torch.Generator().manual_seed(args.seed + 1)
+    other, _ = synthetic.random_state(scene, cfg, g2,
+                                      configs.FLAGSHIP_BG_CAPACITY,
+                                      TRAIN_STEP0, device=dev)
+    gpick = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    batches = []
+    with torch.no_grad():
+        for idx in TRAIN_IMAGES:
+            b = synthetic.make_batch(scene, idx)
+            o = trainer.forward(cfg, other.params,
+                                trainer.merge_statics(statics, other.aux),
+                                other.masks, b, TRAIN_STEP0)
+            alpha = o["opacity"][..., 0]
+            hit = (alpha > 0.5) & (torch.rand(alpha.shape, generator=gpick,
+                                              device=dev) < 0.05)
+            batches.append(synthetic.make_batch(
+                scene, idx, torch.clamp(o["rgb"], 0.0, 1.0), 1.0 - alpha,
+                torch.where(hit, o["depth"][..., 0],
+                            torch.zeros_like(alpha))))
+    del other
+    torch.cuda.synchronize()
+    phase("targets", t0, images=list(TRAIN_IMAGES),
+          sky_share=[round(float(b["sky_masks"].mean()), 4)
+                     for b in batches],
+          lidar_points=[int((b["lidar_depth_map"] > 0).sum())
+                        for b in batches])
+
+    # ---- grads: the first step's gradients, kernels against plain
+    # versions (later states are not compared: after four steps at the
+    # deformation network's learning rate its scale head has grown some
+    # DeformableNodes scales until their projection overflows to NaN, in
+    # the JAX package's projection as in this one; ROADMAP.md)
+    t0 = time.perf_counter()
+    tstate = trainer.init_state(
+        cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
+        generator=torch.Generator(device=dev).manual_seed(args.seed))
+    batch = batches[0]
+    mid = counts()
+    _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate, batch)
+    torch.cuda.synchronize()
+    check(all(counts()[k] > mid[k] for k in path),
+          "the kernel step missed a kernel")
+    mid = counts()
+
+    def fwd_plain(f, st, c, w, h, residuals=False):
+        o = rasterize_cuda.rasterize_fwd_plain(f, st, c, w, h)
+        return (o.img, o.n_live, o.ckpt_off, o.ckpt) if residuals else o.img
+
+    with patched(
+            (pipeline, "expand_cuda", types.SimpleNamespace(
+                expand_gather=expand_cuda.expand_gather_plain)),
+            (pipeline, "rasterize_cuda", types.SimpleNamespace(
+                rasterize_fwd=fwd_plain,
+                rasterize_bwd=rasterize_cuda.rasterize_bwd_plain)),
+            (pipeline, "segsum_cuda", types.SimpleNamespace(
+                segment_sum=lambda d, o: segsum_cuda.segment_sum_plain(
+                    list(d), o))),
+            (cubemap, "cubemap_cuda", types.SimpleNamespace(
+                splat_grad=cubemap_cuda.splat_grad_plain))):
+        _, _, _, g_p, gd_p = trainer.compute_grads(cfg, statics, tstate,
+                                                   batch)
+    torch.cuda.synchronize()
+    check(counts() == mid, "a kernel launched in the plain-version step")
+    g_k["means2d"], g_p["means2d"] = gd_k, gd_p
+    rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
+    worst = max(rels, key=rels.get)
+    phase("grads", t0, leaves=len(rels), worst_leaf=worst,
+          worst_rel_norm=rels[worst], tolerance=GRADS_RTOL,
+          rel_norm={k: float(f"{v:.3g}") for k, v in rels.items()
+                    if "trunk" not in k},
+          norm={k: float(f"{float(g_p[k].norm()):.3g}") for k in g_p
+                if "trunk" not in k})
+    check(rels[worst] <= GRADS_RTOL,
+          f"gradient of {worst} differs from the plain step by "
+          f"{rels[worst]}")
+    del g_k, g_p, gd_k, gd_p
+
+    # ---- train: the training main path, counters from 0
+    t0 = time.perf_counter()
+    captured = {}
+    capture = patched(
+        (pipeline, "rasterize_cuda", types.SimpleNamespace(
+            rasterize_fwd=rasterize_cuda.rasterize_fwd,
+            rasterize_bwd=capturing(captured, "rasterize_bwd",
+                                    rasterize_cuda.rasterize_bwd))),
+        (pipeline, "segsum_cuda", types.SimpleNamespace(
+            segment_sum=capturing(captured, "segment_sum",
+                                  segsum_cuda.segment_sum))),
+        (cubemap, "cubemap_cuda", types.SimpleNamespace(
+            splat_grad=capturing(captured, "splat_grad",
+                                 cubemap_cuda.splat_grad))))
+    for f in wrappers.values():
+        f.launches = 0
+    before = counts()
+    steps, step_ms, saved = [], [], None
+    with capture:
+        for i, batch in enumerate(batches):
+            step = tstate.step
+            if i == 1:
+                saved = snapshot(tstate)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tstate, m = trainer.train_step(cfg, statics, tstate, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            now = counts()
+            check(all(now[k] > before[k] for k in path),
+                  f"a kernel did not launch in step {step}: {before} -> {now}")
+            before = now
+            vals = {k: float(v) for k, v in m.items()}
+            check(all(math.isfinite(v) for v in vals.values()),
+                  f"non-finite metric in step {step}: {vals}")
+            check(vals["nonfinite_params"] == 0,
+                  f"non-finite parameters after step {step}")
+            check(vals["isect_overflow"] == 0, f"overflow in step {step}")
+            refined = step % cfg.density.refine_interval == 0
+            if refined:
+                check(all(not bool(st.vis_count.any())
+                          for st in tstate.stats.values()),
+                      f"step {step} did not restart the statistics")
+            steps.append({"step": step, "refined": refined,
+                          "loss": round(vals["loss"], 5),
+                          "psnr": round(vals["psnr"], 3),
+                          "num_isects": int(vals["num_isects"]),
+                          "refine_dropped": int(vals["refine_dropped"]),
+                          "num_points": {k[11:]: int(v) for k, v in
+                                         vals.items()
+                                         if k.startswith("num_points/")},
+                          "losses": {k[5:]: round(v, 5) for k, v in
+                                     vals.items() if k.startswith("loss/")}})
+    launches = counts()
+    check(launches["segment_sum_rows"] == 0,
+          "segment_sum_rows launched on the main path")
+    check(any(s["refined"] for s in steps), "no refining step")
+    check(set(captured) == {"rasterize_bwd", "segment_sum", "splat_grad"},
+          f"captured {sorted(captured)}")
+    phase("train", t0, steps=steps, launches=launches,
+          ms_per_step=[round(x, 2) for x in step_ms])
+
+    # ---- train_steps: the ordinary step 3399, each time from the state
+    # saved before it
+    t0 = time.perf_counter()
+    ordinary_ms = []
+    for _ in range(TIMED_STEPS):
+        st = restore(saved, tstate.generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = trainer.train_step(cfg, statics, st, batches[1])
+        torch.cuda.synchronize()
+        ordinary_ms.append(1e3 * (time.perf_counter() - t1))
+        check(abs(float(m["loss"]) - steps[1]["loss"]) <= 1e-4,
+              "the restored step computed another loss")
+        del st
+    step_median = sorted(ordinary_ms)[len(ordinary_ms) // 2]
+    first_ms, refine_ms = step_ms[0], step_ms[[s["refined"] for s in steps]
+                                              .index(True)]
+    phase("train_steps", t0, step=TRAIN_STEP0 + 1,
+          ms=[round(x, 3) for x in ordinary_ms],
+          median_ms=round(step_median, 3),
+          spread_ms=round(max(ordinary_ms) - min(ordinary_ms), 3),
+          first_step_ms=round(first_ms, 3),
+          refining_step_ms=round(refine_ms, 3))
+
+    # ---- train_profile: the same step under the profiler
+    t0 = time.perf_counter()
+    st = restore(saved, tstate.generator)
+    profiled = device_profile(
+        lambda: trainer.train_step(cfg, statics, st, batches[1]),
+        step_median)
+    del st, saved
+    phase("train_profile", t0, step=TRAIN_STEP0 + 1, **profiled)
+
+    # ---- train_kernels: each training kernel against its plain version
+    t0 = time.perf_counter()
+    ba = captured["rasterize_bwd"][0]
+    d_k = rasterize_cuda.rasterize_bwd(*ba)
+    d_p = rasterize_cuda.rasterize_bwd_plain(*ba)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(d_k).all()), "backward kernel not finite")
+    bwd_rel = max(row_rel_norms(d_k, d_p))
+    bwd_err = float((d_k - d_p).abs().max())
+    check(bwd_rel <= BWD_RTOL, f"compositing backward kernel differs from "
+          f"its plain version (row relative norm {bwd_rel})")
+    # entries outside every tile's live chunks keep exactly 0
+    fcs = torch.div(ba[1].long(), 128, rounding_mode="floor")
+    entry = torch.arange(d_k.shape[1], device=dev)
+    live_mask = torch.zeros(d_k.shape[1], dtype=torch.bool, device=dev)
+    for lo, hi in zip((fcs * 128).tolist(),
+                      ((fcs + ba[3].long()) * 128).tolist()):
+        live_mask[lo:hi] = True
+    live_mask &= entry < int((ba[1].long() + ba[2].long()).max())
+    check(not bool(d_k[:, ~live_mask].any()),
+          "backward kernel wrote past a tile's live chunks")
+
+    sa = captured["segment_sum"][0]
+    d_rows, offs = sa
+    rows = list(d_rows)
+    s_k = segsum_cuda.segment_sum(*sa)
+    s_p = segsum_cuda.segment_sum_plain(rows, offs)
+    seg_rel = row_rel_norms(s_k, s_p)
+    seg_err = float((s_k - s_p).abs().max())
+    check(max(seg_rel) <= SUM_RTOL, f"segment_sum kernel differs from its "
+          f"plain version (row relative norms {seg_rel})")
+    r0, r1 = pipeline.FEAT0, pipeline.FEAT0 + len(rows)
+    r_k = segsum_cuda.segment_sum_rows(rows, offs, row0=r0)
+    r_p = segsum_cuda.segment_sum_plain(rows, offs, segsum_cuda.OUT_ROWS, r0)
+    rows_rel = row_rel_norms(r_k[r0:r1], r_p[r0:r1])
+    rows_err = float((r_k - r_p).abs().max())
+    check(max(rows_rel) <= SUM_RTOL and not bool(r_k[:r0].any())
+          and not bool(r_k[r1:].any()),
+          f"segment_sum_rows kernel differs from its plain version "
+          f"(row relative norms {rows_rel})")
+    check(torch.equal(r_k[r0:r1], s_k),
+          "segment_sum_rows differs from segment_sum on the same rows")
+    pa = captured["splat_grad"][0]
+    z_k = cubemap_cuda.splat_grad(*pa)
+    z_p = cubemap_cuda.splat_grad_plain(*pa)
+    splat_rel = row_rel_norms(z_k, z_p)
+    splat_err = float((z_k - z_p).abs().max())
+    check(max(splat_rel) <= SUM_RTOL, f"splat kernel differs from its plain "
+          f"version (row relative norms {splat_rel})")
+    g3 = lambda xs: [float(f"{x:.3g}") for x in xs]
+    phase("train_kernels", t0, rasterize_bwd_row_rel_norm=bwd_rel,
+          rasterize_bwd_max_abs_err=bwd_err,
+          rasterize_bwd_tolerance=f"row relative norm {BWD_RTOL}",
+          segment_sum_row_rel_norms=g3(seg_rel),
+          segment_sum_row_norms=g3(s_p.norm(dim=1).tolist()),
+          segment_sum_max_abs_err=seg_err,
+          segment_sum_rows_row_rel_norms=g3(rows_rel),
+          segment_sum_rows_max_abs_err=rows_err,
+          splat_grad_row_rel_norms=g3(splat_rel),
+          splat_grad_row_norms=g3(z_p.flatten(1).norm(dim=1).tolist()),
+          splat_grad_max_abs_err=splat_err,
+          sum_tolerance=f"row relative norm {SUM_RTOL}",
+          capacity=int(ba[0].shape[1]), gaussians=int(offs.shape[0]) - 1,
+          texture=int(pa[-1]), pixels=int(pa[0].shape[0]))
+
+    # ---- train_times: kernels, plain versions, library calls, bounds
+    t0 = time.perf_counter()
+    feats_s, starts, counts_t, n_live = ba[0], ba[1], ba[2], ba[3]
+    fp = rasterize_cuda.rasterize_fwd_plain(feats_s, starts, counts_t,
+                                            ba[7], ba[8])
+    check(torch.equal(fp.n_live, n_live),
+          "plain forward stops tiles elsewhere than the kernel")
+    start = starts.long()
+    end = start + counts_t.long()
+    live_end = torch.minimum(
+        end, (torch.div(start, 128, rounding_mode="floor")
+              + n_live.long()) * 128)
+    live_entries = int(torch.clamp(live_end - start, min=0).sum())
+    live_chunks = int(n_live.sum())
+    n_tiles = int(starts.numel())
+    blend_pairs = int(fp.n_blend)
+    bwd_ops = (live_entries * rasterize_cuda.PIX * PAIR_OPS
+               + blend_pairs * BWD_BLEND_OPS)
+    bwd_bytes = (2 * live_entries * FEAT_BYTES + live_chunks * PIX_BYTES
+                 + n_tiles * (rasterize_cuda.N_OUT * PIX_BYTES + 16))
+
+    n_g = int(offs.numel()) - 1
+    entries = int(offs[-1])
+    # both read the 10 payload rows of each entry and the offsets;
+    # segment_sum writes 10 rows per Gaussian, segment_sum_rows all 16
+    seg_bytes = entries * FEAT_BYTES + (n_g + 1) * 4 + len(rows) * n_g * 4
+    seg_rows_bytes = seg_bytes + (segsum_cuda.OUT_ROWS - len(rows)) * n_g * 4
+    ids = segsum_cuda.segment_ids(offs, d_rows.shape[1])[:entries]
+
+    face, u0, v0, fu, fv, g, res = pa
+    keep = face >= 0
+    cell = ((face[keep].long() * res + v0[keep].long()) * res
+            + u0[keep].long())
+    cells4 = torch.cat([cell, cell + 1, cell + res, cell + res + 1])
+    wu, wv = fu[keep][:, None], fv[keep][:, None]
+    gk = g[keep]
+    vals4 = torch.cat([gk * (1 - wv) * (1 - wu), gk * (1 - wv) * wu,
+                       gk * wv * (1 - wu), gk * wv * wu])
+    touched = int(torch.unique(cells4).numel())
+    npix = int(keep.sum())
+    splat_bytes = npix * 32 + touched * 3 * 4
+    splat_ops = npix * 4 * 3 * 3
+
+    out = []
+    for name, source, replaces, fn, plain, lib, nbytes, nops, err in [
+            ("rasterize_bwd", "bilateral_driving_tpu_torch/csrc/rasterize_bwd.cu",
+             "bilateral_driving_tpu/ops/rasterize_pallas.py:572",
+             lambda: rasterize_cuda.rasterize_bwd(*ba),
+             lambda: rasterize_cuda.rasterize_bwd_plain(*ba), None,
+             bwd_bytes, bwd_ops, bwd_err),
+            ("segment_sum", "bilateral_driving_tpu_torch/csrc/segsum.cu",
+             "bilateral_driving_tpu/ops/segsum_pallas.py:261",
+             lambda: segsum_cuda.segment_sum(*sa),
+             lambda: segsum_cuda.segment_sum_plain(rows, offs),
+             lambda: torch.zeros((len(rows), n_g), device=dev)
+             .index_add_(1, ids, d_rows[:, :entries]),
+             seg_bytes, entries * 10, seg_err),
+            ("segment_sum_rows", "bilateral_driving_tpu_torch/csrc/segsum.cu",
+             "bilateral_driving_tpu/ops/segsum_pallas.py:316",
+             lambda: segsum_cuda.segment_sum_rows(rows, offs, row0=r0),
+             lambda: segsum_cuda.segment_sum_plain(
+                 rows, offs, segsum_cuda.OUT_ROWS, r0),
+             lambda: torch.zeros((segsum_cuda.OUT_ROWS, n_g), device=dev)
+             .narrow(0, r0, len(rows))
+             .index_add_(1, ids, d_rows[:, :entries]),
+             seg_rows_bytes, entries * 10, rows_err),
+            ("splat_grad", "bilateral_driving_tpu_torch/csrc/cubemap_splat.cu",
+             "bilateral_driving_tpu/ops/cubemap.py:228",
+             lambda: cubemap_cuda.splat_grad(*pa),
+             lambda: cubemap_cuda.splat_grad_plain(*pa),
+             lambda: torch.zeros((6 * res * res, 3), device=dev)
+             .index_add_(0, cells4, vals4),
+             splat_bytes, splat_ops, splat_err)]:
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * nops / FP32_OPS_PER_S
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "launches_per_step": launches[name] / len(steps),
+            "max_abs_err": err,
+            "ms": cuda_ms(fn, 20),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if lib is None else cuda_ms(lib, 20),
+        })
+    phase("train_times", t0, live_entries=live_entries, live_chunks=live_chunks,
+          blend_pairs=blend_pairs, bwd_ops=bwd_ops, bwd_bytes=bwd_bytes,
+          segment_entries=entries, segment_bytes=seg_bytes,
+          segment_rows_bytes=seg_rows_bytes,
+          splat_pixels=npix, splat_texels=touched, splat_bytes=splat_bytes,
+          nvidia_smi=nvidia_smi())
+
+    return out
 
 
 def main() -> int:
@@ -229,21 +711,16 @@ def main() -> int:
     # stand-ins record the arguments and call the real wrappers
     t0 = time.perf_counter()
     captured = {}
-
-    def capturing(name, fn):
-        def wrapped(*a):
-            captured.setdefault(name, a)
-            return fn(*a)
-        return wrapped
-
     with kernels_replaced(
-            pipeline, capturing("expand", expand_cuda.expand_gather),
-            capturing("rasterize_fwd", rasterize_cuda.rasterize_fwd)):
+            pipeline,
+            capturing(captured, "expand", expand_cuda.expand_gather),
+            capturing(captured, "rasterize_fwd",
+                      rasterize_cuda.rasterize_fwd)):
         render_loop.render_images(cfg, state, statics, data, TRAIN_VIEWS[:1])
     check(set(captured) == {"expand", "rasterize_fwd"},
           f"captured {sorted(captured)}")
 
-    ea = captured["expand"]
+    ea = captured["expand"][0]
     k1, g1, f1 = expand_cuda.expand_gather(*ea)
     k2, g2, f2 = expand_cuda.expand_gather_plain(*ea)
     torch.cuda.synchronize()
@@ -258,9 +735,9 @@ def main() -> int:
     check(expand_equal, "expand kernel differs from its plain version "
           f"(max abs err {expand_err})")
 
-    ra = captured["rasterize_fwd"]
+    ra = captured["rasterize_fwd"][0]
     img_k = rasterize_cuda.rasterize_fwd(*ra)
-    img_p, n_live, n_blend = rasterize_cuda.rasterize_fwd_plain(*ra)
+    img_p, n_live, n_blend, _, _ = rasterize_cuda.rasterize_fwd_plain(*ra)
     torch.cuda.synchronize()
     raster_err = float((img_k - img_p).abs().max())
     raster_ok = bool(torch.all((img_k - img_p).abs()
@@ -327,7 +804,7 @@ def main() -> int:
                      rasterize_cuda.rasterize_fwd.launches]
     with kernels_replaced(
             pipeline, expand_cuda.expand_gather_plain,
-            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a)[0]):
+            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a).img):
         o_p = trainer.forward(cfg, state.params, full_statics, state.masks,
                               batch, state.step)
     check([expand_cuda.expand_gather.launches,
@@ -391,32 +868,15 @@ def main() -> int:
 
     # ---- profile: where one frame's device time goes
     t0 = time.perf_counter()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     render_loop.render_images(cfg, state, statics, data, TRAIN_VIEWS[:1])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        render_loop.render_images(cfg, state, statics, data, TRAIN_VIEWS[:1])
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t1)
-    # device-side events only (kernels, copies): the operator events above
-    # them carry the same device time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     median_ms = 1e3 * sorted(frame_s)[len(frame_s) // 2]
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    phase("profile", t0, profiled_frame_ms=round(wall_ms, 3),
-          device_busy_ms=round(busy_ms, 3) if busy_ms else "not measured",
-          device_ops=sum(e.count for e in events),
-          device_idle_share_of_median_frame=(
-              round(1.0 - busy_ms / median_ms, 4) if busy_ms
-              else "not measured"),
-          top_device_ms=[[e.key[:70], round(e.self_device_time_total / 1e3, 3),
-                          e.count] for e in top])
+    prof = device_profile(lambda: render_loop.render_images(
+        cfg, state, statics, data, TRAIN_VIEWS[:1]), median_ms)
+    phase("profile", t0, profiled_frame_ms=prof.pop("profiled_ms"),
+          device_idle_share_of_median_frame=prof.pop(
+              "device_idle_share_of_median"), **prof)
+
+    kernels += training(args, cfg, scene, state, statics, dev)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -1,0 +1,291 @@
+"""The port's backward kernel modules against the JAX package's Pallas
+kernels: compositing backward, ragged segment sums, the cube-map splat, and
+the pipeline's gradients as a whole.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+kernels run in interpret mode, as the JAX package's own tests run them. The
+CUDA kernels are held against these plain versions on the card by
+chip_smoke.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bilateral_driving_tpu.ops import cubemap as jcubemap
+from bilateral_driving_tpu.ops import pipeline as jpipeline
+from bilateral_driving_tpu.ops import rasterize_pallas, segsum_pallas
+from bilateral_driving_tpu_torch.ops import (binning, cubemap, cubemap_cuda,
+                                             pipeline, rasterize_cuda,
+                                             segsum_cuda)
+
+WIDTH, HEIGHT = 96, 64
+NTX, NTY = binning.num_tiles(WIDTH, HEIGHT)
+N_TILES = NTX * NTY
+CAP = 2048
+# tile ranges: tiles 0 and 1 share the 128-entry chunk 1, tile 2 is dense
+# and opaque enough to stop early, tile 3 is empty, tiles 4 and 5 share
+# chunk 8
+RANGES = [(0, 200), (200, 330), (330, 1100), (1100, 1100), (1100, 1150),
+          (1150, 1400)]
+
+
+def _rel(a, b):
+    """Relative norm of the difference."""
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / max(np.linalg.norm(np.asarray(b)), 1e-30))
+
+
+def _tile_inputs(seed):
+    """Sorted per-entry features over RANGES, the features of each entry
+    placed around its own tile."""
+    rng = np.random.default_rng(seed)
+    feats = np.zeros((10, CAP), np.float32)
+    feats[5] = -30.0
+    starts = np.array([s for s, _ in RANGES], np.int32)
+    counts = np.array([e - s for s, e in RANGES], np.int32)
+    for t, (s, e) in enumerate(RANGES):
+        n = e - s
+        ox, oy = (t % NTX) * 32, (t // NTX) * 32
+        sc = rng.uniform(1.5, 8.0, n) * (3.0 if t == 2 else 1.0)
+        feats[0, s:e] = ox + rng.uniform(-4, 36, n)
+        feats[1, s:e] = oy + rng.uniform(-4, 36, n)
+        feats[2, s:e] = 1 / sc ** 2
+        feats[3, s:e] = rng.uniform(-0.3, 0.3, n) / sc ** 2
+        feats[4, s:e] = 1 / sc ** 2
+        feats[5, s:e] = np.log(rng.uniform(0.9, 0.999, n) if t == 2
+                               else rng.uniform(0.05, 0.95, n))
+        feats[6:9, s:e] = rng.uniform(0, 1, (3, n))
+        feats[9, s:e] = np.sort(rng.uniform(1, 50, n))
+    gout = rng.normal(size=(N_TILES, 5, 1024)).astype(np.float32)
+    return feats, starts, counts, gout
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compositing_backward_matches_pallas_kernel(seed):
+    feats, starts, counts, gout = _tile_inputs(seed)
+    f16 = jnp.asarray(np.concatenate([feats, np.zeros((6, CAP), np.float32)]))
+    js, jc = jnp.asarray(starts), jnp.asarray(counts)
+    _, tc_ckpt, tc_side, n_live = rasterize_pallas.rasterize_fwd(
+        f16, js, jc, WIDTH, HEIGHT, interpret=True)
+    g8 = np.zeros((N_TILES, 8, 1024), np.float32)
+    g8[:, :5] = gout
+    want = np.asarray(rasterize_pallas.rasterize_bwd(
+        f16, js, jc, n_live, tc_ckpt, tc_side,
+        jnp.asarray(g8.reshape(N_TILES, 8, 8, 128)), WIDTH, HEIGHT,
+        interpret=True))[:10]
+
+    tf = torch.from_numpy(feats)
+    ts, tcn = torch.from_numpy(starts), torch.from_numpy(counts)
+    img, live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
+        tf, ts, tcn, WIDTH, HEIGHT, residuals=True)
+    np.testing.assert_array_equal(live.numpy(), np.asarray(n_live))
+    # the opaque tile stops before its last chunk, the others do not
+    assert live[2] < (1100 + 127) // 128 - 330 // 128
+    assert ckpt.shape[0] == CAP // 128 + N_TILES
+    got = rasterize_cuda.rasterize_bwd(tf, ts, tcn, live, ckpt_off, ckpt,
+                                       torch.from_numpy(gout), WIDTH,
+                                       HEIGHT).numpy()
+    # entries past a tile's stop, and outside every range, get exactly 0
+    stopped = np.arange(330 // 128 * 128 + int(live[2]) * 128, 1100)
+    assert np.all(got[:, stopped] == 0) and np.all(want[:, stopped] == 0)
+    assert np.all(got[:, 1400:] == 0)
+    # each gradient row within 1e-4 of its norm. The two sum the same terms
+    # in other orders and forms: the TPU kernel chains sigma through pixel
+    # moments (sum p^2 dsigma - 2 m sum p dsigma + m^2 sum dsigma), which
+    # cancels; against a float64 evaluation of the same sweep its rows
+    # differ by up to 4e-5 on these inputs, and a few pairs at the 0.999
+    # clamp and the 1/255 gate round to the other side
+    for r in range(10):
+        assert _rel(got[r], want[r]) < 1e-4, r
+    assert np.abs(got).max() > 0
+
+
+def _segments(seed, n, cap):
+    """Offsets with empty, short and a few long segments, clamped to cap
+    like an overflowing frame's."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, n)
+    counts[rng.random(n) < 0.3] = 0
+    counts[rng.integers(0, n, 3)] = rng.integers(100, 400, 3)
+    offsets = np.minimum(np.concatenate([[0], np.cumsum(counts)]), cap)
+    return offsets.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,cap,row0", [(300, 2048, 4), (700, 1024, 6)])
+def test_segment_sums_match_pallas_kernels(n, cap, row0):
+    assert cap % 1024 == 0
+    offsets = _segments(n, n, cap)
+    rng = np.random.default_rng(n)
+    data = rng.normal(size=(16, cap)).astype(np.float32)
+    jo = jnp.asarray(offsets)
+    want = np.asarray(segsum_pallas.segment_sum(jnp.asarray(data), jo,
+                                                interpret=True))
+    got = segsum_cuda.segment_sum(torch.from_numpy(data),
+                                  torch.from_numpy(offsets)).numpy()
+    # the TPU kernel sums in 3 bf16 limbs (about f32 accuracy)
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+
+    rows = data[:10]
+    want_rows = np.asarray(segsum_pallas.segment_sum_rows(
+        tuple(jnp.asarray(r) for r in rows), jo, row0=row0, interpret=True))
+    got_rows = segsum_cuda.segment_sum_rows(
+        [torch.from_numpy(r) for r in rows], torch.from_numpy(offsets),
+        row0=row0).numpy()
+    np.testing.assert_allclose(got_rows, want_rows, rtol=3e-5, atol=3e-5)
+    assert np.all(got_rows[:row0] == 0) and np.all(got_rows[row0 + 10:] == 0)
+    np.testing.assert_array_equal(got_rows[row0:row0 + 10], got[:10])
+
+
+def _smooth_dirs(h, w):
+    xs = np.linspace(-0.4, 0.4, w)
+    ys = np.linspace(-0.3, 0.3, h)
+    gx, gy = np.meshgrid(xs, ys)
+    return np.stack([gx, gy, np.ones_like(gx)], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("dirs_kind", ["smooth", "random"])
+def test_splat_grad_matches_pallas_kernel(dirs_kind):
+    """R=128: smooth rays take the TPU kernel's window path, random ones
+    its scatter fallback."""
+    res = 128
+    rng = np.random.default_rng(3)
+    dirs = (_smooth_dirs(64, 64) if dirs_kind == "smooth"
+            else rng.normal(size=(64, 64, 3)).astype(np.float32))
+    g = rng.normal(size=(64, 64, 3)).astype(np.float32)
+    base = rng.uniform(0, 1, (6, res, res, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda b: jcubemap.sample_splat_vjp(
+        b, jnp.asarray(dirs), True), jnp.asarray(base))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+
+    tb = torch.from_numpy(base).requires_grad_(True)
+    out = cubemap.sample_splat(tb, torch.from_numpy(dirs))
+    # texel coordinates (u / 2 + 1/2) R - 1/2 round at about R 2^-24 =
+    # 8e-6 at R=128, in other places in the two frameworks, so bilinear
+    # weights (and with them values and gradients) differ by up to ~1e-5
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(jcubemap.sample(jnp.asarray(base), jnp.asarray(dirs))),
+        atol=2e-5)
+    (got,) = torch.autograd.grad(out, tb, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=2e-5 * np.abs(want).max())
+
+    # padded pixels (face -1) add nothing
+    face, u0, v0, fu, fv = cubemap.corner_data(torch.from_numpy(dirs), res)
+    face = face.clone()
+    face[::2] = -1
+    dz = cubemap_cuda.splat_grad(face, u0, v0, fu, fv,
+                            torch.from_numpy(g.reshape(-1, 3)), res)
+    keep = slice(1, None, 2)
+    dz_odd = cubemap_cuda.splat_grad(face[keep], u0[keep], v0[keep], fu[keep],
+                                fv[keep], torch.from_numpy(
+                                    g.reshape(-1, 3)[1::2].copy()), res)
+    torch.testing.assert_close(dz, dz_odd, rtol=0, atol=0)
+
+
+def _gaussians(seed, n=300):
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-6, 6, n), rng.uniform(-4, 4, n),
+                      rng.uniform(4, 25, n)], -1).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    scales = np.exp(rng.uniform(-2.5, -0.5, (n, 3))).astype(np.float32)
+    opac = rng.uniform(0.1, 0.95, n).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    view = np.eye(4, dtype=np.float32)
+    K = np.array([[80.0, 0, WIDTH / 2], [0, 80.0, HEIGHT / 2], [0, 0, 1]],
+                 np.float32)
+    cot = [rng.normal(size=s).astype(np.float32)
+           for s in ((HEIGHT, WIDTH, 3), (HEIGHT, WIDTH, 1),
+                     (HEIGHT, WIDTH, 1))]
+    return (means, quats, scales, opac, colors, view, K), cot
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pipeline_gradients_match_jax(seed):
+    """torch.autograd.grad of the port's rasterize against jax.vjp of the
+    JAX rasterize (XLA expansion; its Pallas expansion mis-handles sparse
+    tables, ROADMAP.md) with the same cotangents on rgb, depth and alpha,
+    and the screen-space gradient of means2d_dummy."""
+    inputs, cot = _gaussians(seed)
+    n = inputs[0].shape[0]
+    jcfg = jpipeline.RasterizeConfig(isect_capacity=2 ** 13, interpret=True,
+                                     pallas_expand=False)
+
+    def jf(means, quats, scales, opac, colors, dummy):
+        out = jpipeline.rasterize(means, quats, scales, opac, colors,
+                                  jnp.asarray(inputs[5]),
+                                  jnp.asarray(inputs[6]), WIDTH, HEIGHT,
+                                  jcfg, means2d_dummy=dummy)
+        return out["rgb"], out["depth"], out["alpha"]
+
+    jin = [jnp.asarray(x) for x in inputs[:5]] + [jnp.zeros((n, 2))]
+    jout, vjp = jax.vjp(jf, *jin)
+    want = vjp(tuple(jnp.asarray(c) for c in cot))
+
+    tin = [torch.from_numpy(x).requires_grad_(True) for x in inputs[:5]]
+    dummy = torch.zeros((n, 2), requires_grad=True)
+    out = pipeline.rasterize(*tin, torch.from_numpy(inputs[5]),
+                             torch.from_numpy(inputs[6]), WIDTH, HEIGHT,
+                             pipeline.RasterizeConfig(isect_capacity=2 ** 13),
+                             means2d_dummy=dummy)
+    assert float(out["alpha"].detach().mean()) > 0.2
+    for k, j in zip(("rgb", "depth", "alpha"), jout):
+        hit = np.asarray(jout[2]) > 0.2 if k == "depth" else Ellipsis
+        np.testing.assert_allclose(out[k].detach().numpy()[hit],
+                                   np.asarray(j)[hit], atol=1e-3 if
+                                   k == "depth" else 3e-5, rtol=1e-4)
+    got = torch.autograd.grad(
+        [out["rgb"], out["depth"], out["alpha"]], tin + [dummy],
+        [torch.from_numpy(c) for c in cot])
+    # 1e-4 relative norm per input. Both sides composite the same entries,
+    # but the JAX forward forms sigma from pixel monomials and its backward
+    # chains through pixel moments, so every transmittance and each conic
+    # gradient rounds differently: measured 1.2e-5 (colors) to 6.2e-5
+    # (scales) over seeds 0-2. The JAX package's own 1e-5 (Pallas against
+    # its XLA path) compares two backwards of one forward.
+    for name, a, b in zip(("means", "quats", "scales", "opacities", "colors",
+                           "means2d"), got, want):
+        assert _rel(a.numpy(), b) < 1e-4, (name, _rel(a.numpy(), b))
+
+
+def test_render_path_saves_no_residuals():
+    """Without grad mode the forward writes no checkpoints: the same call
+    under no_grad returns tensors without a graph."""
+    inputs, _ = _gaussians(0)
+    tin = [torch.from_numpy(x).requires_grad_(True) for x in inputs[:5]]
+    with torch.no_grad():
+        out = pipeline.rasterize(*tin, torch.from_numpy(inputs[5]),
+                                 torch.from_numpy(inputs[6]), WIDTH, HEIGHT,
+                                 pipeline.RasterizeConfig(
+                                     isect_capacity=2 ** 13))
+    assert out["rgb"].grad_fn is None
+
+
+def test_backward_wrappers_raise_instead_of_falling_back():
+    feats, starts, counts, gout = _tile_inputs(0)
+    meta = lambda x: torch.from_numpy(np.asarray(x)).to("meta")
+    before = (rasterize_cuda.rasterize_bwd.launches,
+              segsum_cuda.segment_sum.launches,
+              segsum_cuda.segment_sum_rows.launches,
+              cubemap_cuda.splat_grad.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_cuda.rasterize_bwd(
+            meta(feats), meta(starts), meta(counts), meta(counts),
+            meta(starts), meta(np.zeros((4, 1024), np.float32)), meta(gout),
+            WIDTH, HEIGHT)
+    offsets = meta(_segments(0, 10, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        segsum_cuda.segment_sum(meta(feats[:, :64]), offsets)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        segsum_cuda.segment_sum_rows([meta(feats[0, :64])], offsets, row0=4)
+    idx = meta(np.zeros(8, np.int32))
+    w = meta(np.zeros(8, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cubemap_cuda.splat_grad(idx, idx, idx, w, w,
+                           meta(np.zeros((8, 3), np.float32)), 16)
+    assert before == (rasterize_cuda.rasterize_bwd.launches,
+                      segsum_cuda.segment_sum.launches,
+                      segsum_cuda.segment_sum_rows.launches,
+                      cubemap_cuda.splat_grad.launches)

@@ -113,8 +113,8 @@ def test_compositing_matches_pallas_kernel(seed):
     np.testing.assert_allclose(got.numpy()[:, 3], want[:, 3], rtol=1e-4,
                                atol=3e-5 * 50)
     # the same per-tile early stop, chunk for chunk
-    _, live, _ = rasterize_cuda.rasterize_fwd_plain(fs, starts, counts,
-                                                    WIDTH, HEIGHT)
+    live = rasterize_cuda.rasterize_fwd_plain(fs, starts, counts, WIDTH,
+                                              HEIGHT).n_live
     np.testing.assert_array_equal(live.numpy(), np.asarray(n_live))
 
 
