@@ -1,70 +1,114 @@
 """The flagship configuration as a Python preset.
 
 The JAX package reads `bilateral_driving_tpu/configs/omnire_ms_bilateral.yaml`
-through PyYAML; the port carries the settings its forward and training step
-read here (render, model, loss weights, background regularisers, density
-control and learning rates), so the card path needs no YAML parser. tests/test_torch_configs.py holds this
-preset equal to what the JAX package builds from the YAML.
+through PyYAML; the port carries the same tree here, every block of it, so
+the card path needs no YAML parser. The CLI (tools/train.py) starts from a
+preset of PRESETS and applies `key=value` overrides;
+tools.common.trainer_config_from maps a tree onto TrainerConfig.
+tests/test_torch_configs.py and tests/test_torch_cli.py hold this preset
+equal to PyYAML's load of the YAML and to what the JAX package builds from
+it.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from .models import bilateral
-from .train import density
 from .train.trainer import TrainerConfig
 
-FLAGSHIP = dict(
-    background_model="vanilla",
-    use_rigid=True,
-    use_smpl=False,
-    use_deformable=True,
-    sky_model="envlight",
-    affine_model="multiscale_bilateral",
-    use_camera_opt=False,
-    use_camera_perturb=False,
-    near_plane=0.1,
-    far_plane=1e10,
-    radius_clip=0.0,
-    antialiased=False,
-    isect_capacity=2097152,
-    sh_degree=3,
-    sh_degree_interval=1000,
-    ms_grid=bilateral.DEFAULT_MS_GRID,
-    guidance_factor=bilateral.DEFAULT_GUIDANCE_FACTOR,
-    envlight_resolution=1024,
-    w_dynamic_region=0.0,
-    w_rgb=0.8,
-    w_ssim=0.2,
-    w_mask=0.05,
-    w_depth=0.01,
-    lidar_w_decay=-1.0,
-    depth_loss_type="l1",
-    max_depth=80.0,
-    w_affine=0.01,
-    w_affine_inverse=0.0,
-    w_opacity_entropy=0.0,
-    w_inverse_depth_smoothness=0.0,
-    w_rigid_temporal=0.0,
-    background_reg=(("sharp_shape_reg", (("w", 1.0), ("max_gauss_ratio", 10.0),
-                                         ("step_interval", 10))),),
-    density=density.DensityConfig(
-        densify_grad_thresh=0.0005, densify_size_thresh=0.003,
-        n_split_samples=2, cull_alpha_thresh=0.005, cull_scale_thresh=0.5,
-        reset_alpha_interval=3000, reset_alpha_value=0.01,
-        refine_interval=100, warmup_steps=500, stop_split_at=15000,
-        stop_screen_size_at=4000),
-    max_steps=30000,
-)
-# background_init.capacity and trainer.max_steps of the same YAML
-FLAGSHIP_BG_CAPACITY = 2097152
-FLAGSHIP_MAX_STEPS = FLAGSHIP["max_steps"]
+FLAGSHIP_TREE = {
+    "trainer": {
+        "background_model": "vanilla",
+        "use_rigid": True,
+        "use_smpl": False,
+        "use_deformable": True,
+        "sky_model": "envlight",
+        "affine_model": "multiscale_bilateral",
+        "use_camera_opt": False,
+        "sh_degree": 3,
+        "sh_degree_interval": 1000,
+        "envlight_resolution": 1024,
+        "max_steps": 30000,
+    },
+    "render": {
+        "near_plane": 0.1,
+        "far_plane": 10000000000.0,
+        "radius_clip": 0.0,
+        "antialiased": False,
+        "isect_capacity": 2097152,
+    },
+    "losses": {
+        "rgb": 0.8,
+        "ssim": 0.2,
+        "mask": 0.05,
+        "depth": 0.01,
+        "lidar_w_decay": -1,
+        "depth_loss_type": "l1",
+        "max_depth": 80.0,
+        "affine": 0.01,
+        "affine_inverse": 0.0,
+        "opacity_entropy": 0.0,
+        "inverse_depth_smoothness": 0.0,
+        "rigid_temporal": 0.0,
+        "smpl_joint_smooth": 0.01,
+    },
+    "background_reg": {
+        "sharp_shape_reg": {"w": 1.0, "max_gauss_ratio": 10.0,
+                            "step_interval": 10},
+    },
+    "density": {
+        "densify_grad_thresh": 0.0005,
+        "densify_size_thresh": 0.003,
+        "n_split_samples": 2,
+        "cull_alpha_thresh": 0.005,
+        "cull_scale_thresh": 0.5,
+        "reset_alpha_interval": 3000,
+        "reset_alpha_value": 0.01,
+        "refine_interval": 100,
+        "warmup_steps": 500,
+        "stop_split_at": 15000,
+        "stop_screen_size_at": 4000,
+    },
+    "background_init": {
+        "num_lidar_samples": 800000,
+        "num_near_pts": 100000,
+        "num_far_pts": 100000,
+        "capacity": 2097152,
+    },
+    "sampler": {
+        "buffer_ratio": 0.5,
+        "start_enhance_weight": 3,
+        "refresh_every": 4000,
+        "refresh_downscale": 4,
+    },
+    "data": {
+        "scene_dir": None,
+        "cameras": [0, 1, 2, 3, 4, 5],
+        "start_frame": 0,
+        "end_frame": -1,
+        "downscale": 3,
+        "test_image_stride": 10,
+        "num_cams": 6,
+    },
+    "smpl": {"model_path": None},
+    "logging": {"log_every": 100, "ckpt_every": 10000, "vis_freq": 2000},
+    "res_schedule": {"double_steps": 250, "downscale_times": 2},
+}
+
+PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE}
+
+# background_init.capacity and trainer.max_steps of the same tree
+FLAGSHIP_BG_CAPACITY = FLAGSHIP_TREE["background_init"]["capacity"]
+FLAGSHIP_MAX_STEPS = FLAGSHIP_TREE["trainer"]["max_steps"]
 
 
 def flagship_config(num_images: int, num_frames: int,
                     **overrides) -> TrainerConfig:
     """TrainerConfig of omnire_ms_bilateral for a scene's image and frame
-    counts; `overrides` replace single fields (e.g. isect_capacity)."""
-    cfg = TrainerConfig(num_images=num_images, num_frames=num_frames,
-                        **FLAGSHIP)
+    counts (scene scale 1); `overrides` replace single fields (e.g.
+    isect_capacity)."""
+    from .tools import common
+    from .utils.config import wrap
+
+    cfg = common.trainer_config_from(wrap(FLAGSHIP_TREE), num_images,
+                                     num_frames, scene_scale=1.0)
     return dataclasses.replace(cfg, **overrides)

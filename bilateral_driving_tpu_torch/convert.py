@@ -6,7 +6,10 @@ that a deformation network (`deform_net`: trunk/heads dicts of (in, out)
 weight matrices) becomes a models.deform.DeformNetwork. Inputs are numpy
 arrays (np.asarray of the JAX leaves); nothing of JAX is imported here.
 `train_state_from_jax` carries a training state: parameters, aux, masks,
-density statistics and step; the port builds its own fresh Adam state.
+density statistics and step; the port builds its own fresh Adam state. It
+takes the synthetic states of the JAX package and those its
+tools/common.build_real_scene builds from a scene directory, whose
+DeformableNodes hold the scene's pedestrians when SMPL is off.
 """
 from __future__ import annotations
 

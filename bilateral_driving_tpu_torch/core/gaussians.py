@@ -49,3 +49,26 @@ def get_gaussians(params, mask, cam_origin, step: int,
         torch.sigmoid(params["logit_opacities"][:, 0]) * mask,
         sh_colors(means, params["sh_dc"], params["sh_rest"], cam_origin,
                   step, sh_degree_interval, sh_degree))
+
+
+class _FiniteGradExp(torch.autograd.Function):
+    """exp whose gradient is exactly 0 where the incoming gradient is 0,
+    also where exp overflowed to inf (0 * inf would be NaN)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(g == 0, torch.zeros_like(g), g * y)
+
+
+def finite_grad_exp(x: torch.Tensor) -> torch.Tensor:
+    """torch.exp with the same values, and the same gradient wherever that
+    gradient is finite; a Gaussian whose scale overflowed and that the
+    projection culled gets 0 instead of NaN."""
+    return _FiniteGradExp.apply(x)

@@ -75,3 +75,29 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: float) -> torch.Tensor:
                + torch.sin(t * theta) / sin_theta * q1)
     lerped = (1.0 - t) * q0 + t * q1
     return quat_normalize(torch.where(dot > 0.9995, lerped, slerped))
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> (..., 4) wxyz quaternion with w >= 0:
+    the four Shepperd candidates, the best-conditioned one kept, as the
+    JAX package computes it."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    cands = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                         1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+                        dim=-1)
+    best = torch.argmax(cands, dim=-1)
+    quats = torch.stack([qw, qx, qy, qz], dim=-2)     # (..., 4, 4)
+    q = torch.gather(quats, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    q = quat_normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)

@@ -231,7 +231,9 @@ class SyntheticData:
         self.scene = scene
         self.num_images = scene.num_frames * scene.num_cams
 
-    def get_batch(self, image_idx: int):
+    def get_batch(self, image_idx: int, downscale: int = 1):
+        if downscale != 1:
+            raise ValueError("a synthetic scene renders at its own size")
         return make_batch(self.scene, image_idx)
 
     def neighbor_train_indices(self, test_stride: int, k: int = 2):

@@ -187,3 +187,30 @@ def multiscale_tv_loss(params, grid_sizes: Sequence[Sequence[int]] =
         loss = loss + total_variation_loss(level["grids"]) * (
             0.5 * (gx * gy * gw) ** 0.5)
     return loss
+
+
+def color_correct(img: torch.Tensor, ref: torch.Tensor, num_iters: int = 5,
+                  eps: float = 0.5 / 255.0) -> torch.Tensor:
+    """Per-channel quadratic least-squares colour matching of `img` to
+    `ref` with outlier-aware refits (lib_bilagrid.py:56-122), as the
+    colour-corrected eval uses it. Each fit is the minimum-norm solution
+    through the pseudo-inverse, as jnp.linalg.lstsq takes it."""
+    img_f = img.reshape(-1, 3)
+    ref_f = ref.reshape(-1, 3)
+    num_pix = img_f.shape[0]
+    # quadratic expansion: [r, g, b, rg, rb, gb, r^2, g^2, b^2, 1]
+    r, g, b = img_f[:, 0], img_f[:, 1], img_f[:, 2]
+    A = torch.stack([r, g, b, r * g, r * b, g * b, r * r, g * g, b * b,
+                     torch.ones(num_pix, dtype=img.dtype,
+                                device=img.device)], dim=-1)
+    out = []
+    for c in range(3):
+        y = ref_f[:, c]
+        mask = torch.ones(num_pix, dtype=img.dtype, device=img.device)
+        x = torch.zeros((A.shape[1],), dtype=img.dtype, device=img.device)
+        for _ in range(num_iters):
+            x = torch.linalg.pinv(A * mask[:, None]) @ (y * mask)
+            pred = A @ x
+            mask = ((pred >= -eps) & (pred <= 1.0 + eps)).to(img.dtype)
+        out.append(torch.clamp(A @ x, 0.0, 1.0))
+    return torch.stack(out, dim=-1).reshape(img.shape)

@@ -29,6 +29,7 @@ KERNELS = {
     "rasterize_bwd": ["--fmad=false"],
     "segsum": [],
     "cubemap_splat": [],
+    "scan": [],
 }
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

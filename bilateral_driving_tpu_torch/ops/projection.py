@@ -7,6 +7,13 @@ lim = 1.3 tan(fov/2); eps2d = 0.3 pixel blur on the 2D covariance diagonal;
 antialiased mode scales opacity by sqrt(det(cov2d) / det(cov2d + eps2d I));
 radius = ceil(3 sqrt(max eigenvalue)), culled at or below radius_clip, off
 the image, or outside (near, far).
+
+One guard is the port's own: a Gaussian whose blurred 2D covariance has a
+non-finite determinant (an overflowed scale, a non-finite mean) is culled
+and its inputs get zero gradients. The JAX package culls a NaN determinant
+too (`det > 0` is false) but lets its gradient through, where the conic's
+VJP multiplies a zero cotangent by NaN and poisons every leaf of the
+class; everywhere the determinant is finite the two are the same.
 """
 from __future__ import annotations
 
@@ -100,7 +107,12 @@ def project(means, quats, scales, viewmat, K, width: int, height: int, *,
     means2d = torch.stack([fx * mean_c[..., 0] * rz + cx,
                            fy * mean_c[..., 1] * rz + cy], dim=-1)
 
-    valid = ((z > near_plane) & (z < far_plane) & (det > 0.0)
+    finite = torch.isfinite(det)
+    for x in (means, quats, scales):
+        if x.requires_grad:
+            x.register_hook(lambda g: torch.where(finite[:, None], g,
+                                                  torch.zeros_like(g)))
+    valid = ((z > near_plane) & (z < far_plane) & (det > 0.0) & finite
              & (radius > radius_clip)
              & (means2d[..., 0] + radius > 0)
              & (means2d[..., 0] - radius < width)

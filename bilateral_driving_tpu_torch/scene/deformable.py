@@ -49,4 +49,7 @@ def node_gaussians(params, statics, mask, cam_origin, step: int, frame: int,
     rgbs = G.sh_colors(means, params["sh_dc"], params["sh_rest"], cam_origin,
                        step, cfg.sh_degree_interval, cfg.sh_degree)
     opac = torch.sigmoid(params["logit_opacities"][:, 0]) * valid[pid] * mask
-    return G.Gaussians(means, torch.exp(log_scales), quats, opac, rgbs)
+    # the deformation network's scale offset is unbounded: an overflowed
+    # scale is culled by the projection and must get a zero gradient
+    return G.Gaussians(means, G.finite_grad_exp(log_scales), quats, opac,
+                       rgbs)

@@ -1,0 +1,251 @@
+"""Configuration tree -> trainer construction shared by the CLIs: port of
+bilateral_driving_tpu/tools/common.py for real drivestudio scene
+directories and the flagship classes.
+
+`trainer_config_from` maps a tree (configs.PRESETS plus overrides) onto
+TrainerConfig; `build_real_scene` loads a scene and builds every class
+from its points. With `trainer.use_smpl` off the SMPL-class instances go to
+DeformableNodes, as in the JAX package. The synthetic-scene builder, PVG and
+deformgs backgrounds and SMPLNodes wait for their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..data import scene as scene_mod
+from ..train import density, setup, trainer
+from ..utils.config import ConfigDict, validate_keys
+
+
+def _leaves(*names):
+    return {n: True for n in names}
+
+
+# every key a CLI or builder consumes (the JAX package's schema, plus
+# data.pixel_pack); validate_config rejects the rest, so a misspelled
+# override fails instead of training with a default
+CONFIG_SCHEMA = {
+    "seed": True,
+    "dataset": True,
+    "trainer": _leaves(
+        "background_model", "use_rigid", "use_smpl", "use_deformable",
+        "sky_model", "affine_model", "use_camera_opt", "use_camera_perturb",
+        "use_voxel_deformer", "sh_degree", "sh_degree_interval",
+        "envlight_resolution", "max_steps", "ms_grid", "guidance_factor",
+        "bilateral_grid_shape", "steps_per_dispatch"),
+    "render": _leaves("near_plane", "far_plane", "radius_clip", "antialiased",
+                      "isect_capacity", "capacity_policy", "capacity_margin",
+                      "capacity_floor", "rebucket_after"),
+    "losses": {
+        **_leaves(
+            "rgb", "ssim", "mask", "mask_loss_type", "depth",
+            "depth_loss_type", "depth_inverse", "depth_normalize",
+            "depth_reduction", "max_depth", "lidar_w_decay", "affine",
+            "affine_inverse", "opacity_entropy", "inverse_depth_smoothness",
+            "rigid_temporal", "smpl_joint_smooth"),
+        "dynamic_region": _leaves("w", "start_from"),
+    },
+    "background_reg": {"*": {"*": True}},
+    "smpl_reg": {"*": {"*": True}},
+    "density": {f: True for f in density.DensityConfig._fields},
+    "background_init": _leaves("num_lidar_samples", "num_near_pts",
+                               "num_far_pts", "capacity"),
+    "rigid_capacity": True,
+    "deformable_capacity": True,
+    "sampler": _leaves("buffer_ratio", "start_enhance_weight",
+                       "refresh_every", "refresh_downscale"),
+    "data": _leaves(
+        "dataset", "scene_dir", "cameras", "downscale", "test_image_stride",
+        "num_cams", "start_frame", "end_frame", "undistort", "ego_mask_dir",
+        "synthetic", "width", "height", "num_frames", "num_bg",
+        "bg_capacity", "pixel_pack"),
+    "pvg": _leaves("cycle_length", "time_interval", "betas_init",
+                   "enable_temporal_smoothing", "smooth_probability",
+                   "distribution_span"),
+    "smpl": _leaves("model_path"),
+    "logging": _leaves("log_every", "ckpt_every", "vis_freq",
+                       "metrics_flush_every"),
+    "res_schedule": _leaves("double_steps", "downscale_times"),
+    "optim": {"*": _leaves("lr", "lr_final", "warmup_steps")},
+}
+
+
+def validate_config(cfg: ConfigDict):
+    unknown = validate_keys(cfg, CONFIG_SCHEMA)
+    if unknown:
+        raise ValueError(
+            "unknown config keys (misspelled override?): "
+            + ", ".join(sorted(unknown)))
+
+
+def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
+                        scene_scale: float,
+                        scene_origin=(0.0, 0.0, 0.0)) -> trainer.TrainerConfig:
+    """The JAX package's mapping, with its defaults for absent keys, onto
+    the fields the port's TrainerConfig has."""
+    validate_config(cfg)
+    t = cfg.get("trainer", {})
+    losses = cfg.get("losses", {})
+    dens = cfg.get("density", {})
+    render = cfg.get("render", {})
+    den = density.DensityConfig(**{k: v for k, v in dens.items()
+                                   if k in density.DensityConfig._fields})
+    kw = dict(
+        background_model=t.get("background_model", "vanilla"),
+        use_rigid=t.get("use_rigid", False),
+        use_smpl=t.get("use_smpl", False),
+        use_deformable=t.get("use_deformable", False),
+        sky_model=t.get("sky_model", "envlight"),
+        affine_model=t.get("affine_model", "multiscale_bilateral"),
+        use_camera_opt=t.get("use_camera_opt", False),
+        use_camera_perturb=t.get("use_camera_perturb", False),
+        near_plane=render.get("near_plane", 0.1),
+        far_plane=render.get("far_plane", 1e7),
+        radius_clip=render.get("radius_clip", 0.0),
+        antialiased=render.get("antialiased", False),
+        isect_capacity=int(render.get("isect_capacity", 2 ** 20)),
+        sh_degree=t.get("sh_degree", 3),
+        sh_degree_interval=t.get("sh_degree_interval", 1000),
+        envlight_resolution=t.get("envlight_resolution", 512),
+        num_images=num_images,
+        num_frames=num_frames,
+        w_rgb=losses.get("rgb", 0.8),
+        w_ssim=losses.get("ssim", 0.2),
+        w_mask=losses.get("mask", 0.05),
+        w_depth=losses.get("depth", 0.01),
+        lidar_w_decay=losses.get("lidar_w_decay", -1.0),
+        w_affine=losses.get("affine", 1e-5),
+        w_affine_inverse=losses.get("affine_inverse", 0.0),
+        w_opacity_entropy=losses.get("opacity_entropy", 0.0),
+        w_inverse_depth_smoothness=losses.get("inverse_depth_smoothness", 0.0),
+        depth_loss_type=losses.get("depth_loss_type", "l1"),
+        depth_inverse=losses.get("depth_inverse", False),
+        depth_normalize=losses.get("depth_normalize", False),
+        depth_reduction=losses.get("depth_reduction", "mean_on_hit"),
+        mask_loss_type=losses.get("mask_loss_type", "safe_bce"),
+        max_depth=losses.get("max_depth", 80.0),
+        w_rigid_temporal=losses.get("rigid_temporal", 0.0),
+        # presence of the dynamic_region block enables it at the reference's
+        # default weight 1.0 (base.py:640-641)
+        w_dynamic_region=(losses.get("dynamic_region") or {}).get("w", 1.0)
+        if losses.get("dynamic_region") is not None else 0.0,
+        dynamic_region_start_from=int(
+            (losses.get("dynamic_region") or {}).get("start_from", 0)),
+        density=den,
+        scene_scale=scene_scale,
+        scene_origin=tuple(float(x) for x in scene_origin),
+        max_steps=t.get("max_steps", 30000),
+    )
+    if "ms_grid" in t:
+        kw["ms_grid"] = tuple(tuple(g) for g in t["ms_grid"])
+    if "guidance_factor" in t:
+        kw["guidance_factor"] = tuple(t["guidance_factor"])
+    regs = cfg.get("background_reg", None)
+    if regs:
+        kw["background_reg"] = tuple((k, tuple(v.items()))
+                                     for k, v in regs.items())
+    optim = cfg.get("optim", None)
+    if optim:
+        # per-config lr-group overrides: group -> {lr, lr_final,
+        # warmup_steps}
+        default_lr = next(f for f in dataclasses.fields(trainer.TrainerConfig)
+                          if f.name == "lr").default
+        table = {e[0]: list(e[1:]) for e in default_lr}
+        for group, ov in optim.items():
+            base = table.get(group, [1e-3, None, 0])
+            table[group] = [ov.get("lr", base[0]),
+                            ov.get("lr_final", base[1]),
+                            ov.get("warmup_steps", base[2])]
+        kw["lr"] = tuple((k, *v) for k, v in table.items())
+    return trainer.TrainerConfig(**kw)
+
+
+def _background_from_scene(generator, cfg, data: scene_mod.SceneData, tcfg,
+                           device):
+    """The vanilla Background from the scene's lidar and sphere points.
+    Returns (params, mask, statics)."""
+    if tcfg.background_model != "vanilla":
+        raise NotImplementedError(
+            f"background_model={tcfg.background_model!r} is not ported yet: "
+            "the background-variants slice")
+    init = cfg.get("background_init", {})
+    pts = scene_mod.get_init_background(
+        data, num_samples=init.get("num_lidar_samples", 400_000),
+        num_near=init.get("num_near_pts", 50_000),
+        num_far=init.get("num_far_pts", 50_000))
+    colors = scene_mod.lidar_colors_for_points(data, pts)
+    capacity = int(init.get("capacity", max(2 ** 19, 2 * pts.shape[0])))
+    capacity = max(capacity, pts.shape[0])
+    params, mask = setup.build_background(
+        generator, capacity, torch.from_numpy(pts).to(device),
+        torch.from_numpy(colors).to(device), sh_degree=tcfg.sh_degree)
+    return params, mask, {}
+
+
+def build_real_scene(cfg: ConfigDict, seed: int = 0, device="cuda"):
+    """Load the drivestudio scene of cfg.data and construct every class.
+    Random draws come from a CPU torch.Generator seeded with `seed`, so a
+    scene builds alike on every device. Returns (tcfg, data, params,
+    statics, aux, masks)."""
+    d = cfg.data
+    data = scene_mod.load_scene(
+        d.scene_dir, cameras=tuple(d.get("cameras", (0,))),
+        start_frame=d.get("start_frame", 0), end_frame=d.get("end_frame", -1),
+        downscale=d.get("downscale", 1.0), dataset=d.get("dataset", None),
+        undistort=d.get("undistort", False),
+        ego_mask_dir=d.get("ego_mask_dir", None),
+        pixel_pack=d.get("pixel_pack", None), device=device)
+    aabb = data.aabb()
+    tcfg = trainer_config_from(cfg, data.num_images, data.num_frames,
+                               data.scene_radius(),
+                               scene_origin=0.5 * (aabb[0] + aabb[1]))
+    if tcfg.use_smpl:
+        raise NotImplementedError("SMPLNodes are not ported yet: the SMPL "
+                                  "slice")
+    gen = torch.Generator().manual_seed(seed)
+    params = setup.build_models(tcfg, device)
+    masks, aux, statics = {}, {}, {}
+
+    bg, masks["Background"], statics["Background"] = _background_from_scene(
+        gen, cfg, data, tcfg, device)
+    params["Background"] = bg
+    aux["Background"] = {}
+
+    def tensors(obj):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return (t(obj["means"]),
+                t(scene_mod.lidar_colors_for_points(data, obj["means"])),
+                t(obj["point_ids"]), t(obj["quats"]), t(obj["trans"]),
+                t(obj["frame_valid"]), t(obj["sizes"]))
+
+    if tcfg.use_rigid:
+        obj = scene_mod.get_init_objects(data, "RigidNodes")
+        if obj is not None:
+            cap = int(cfg.get("rigid_capacity", 2 * obj["means"].shape[0]))
+            (params["RigidNodes"], statics["RigidNodes"], aux["RigidNodes"],
+             masks["RigidNodes"]) = setup.build_rigid(
+                gen, cap, *tensors(obj), sh_degree=tcfg.sh_degree)
+        else:
+            # safe_init_models: drop empty classes (scene_graph.py:73-84)
+            tcfg = dataclasses.replace(tcfg, use_rigid=False)
+
+    if tcfg.use_deformable:
+        # with SMPL off, SMPL-class instances fall through to
+        # DeformableNodes (the reference's load_smpl=False routing)
+        obj = scene_mod.get_init_objects(
+            data, ("DeformableNodes", "SMPLNodes"))
+        if obj is not None:
+            cap = int(cfg.get("deformable_capacity",
+                              2 * obj["means"].shape[0]))
+            (params["DeformableNodes"], statics["DeformableNodes"],
+             aux["DeformableNodes"], masks["DeformableNodes"]) = \
+                setup.build_deformable(gen, cap, *tensors(obj),
+                                       obj["sizes"].shape[0],
+                                       sh_degree=tcfg.sh_degree)
+        else:
+            tcfg = dataclasses.replace(tcfg, use_deformable=False)
+
+    return tcfg, data, params, statics, aux, masks

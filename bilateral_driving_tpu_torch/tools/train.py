@@ -1,0 +1,346 @@
+"""Training CLI: port of bilateral_driving_tpu/tools/train.py, single
+device.
+
+    python -m bilateral_driving_tpu_torch.tools.train \
+        --config omnire_ms_bilateral --output_root ./work_dirs \
+        --run_name myrun data.scene_dir=/path/to/processed/scene \
+        [data.pixel_pack=scene_pixels.npz] [--device cpu] [key=value ...]
+
+Starts from a preset of configs.PRESETS with dotted `key=value` overrides
+(YAML scalars and flow lists), builds the scene from its directory
+(tools/common.build_real_scene) and trains it on `--device` (default cuda;
+no CPU fallback): error-buffer importance sampling with its periodic
+refresh, the coarse-to-fine resolution schedule, `trainer.steps_per_dispatch`
+steps per window (a plain loop; host events land on window starts), a
+pending-metrics window flushed every `logging.metrics_flush_every` steps
+with the non-finite loss and non-finite parameter guards and the
+`render.capacity_policy` (rebucket | error | ignore), JSONL metrics and
+full-state checkpoints every `logging.ckpt_every` steps. `--resume_from`
+continues from a checkpoint exactly as the uninterrupted run would.
+
+The run directory `<output_root>/<run_name>` receives config.json,
+metrics.json, log.txt, checkpoints/, test_metrics.json (the first 20 test
+images) and train_summary.json (steps, steps/s, peak device memory,
+kernel launch counts, refinements, guards). Synthetic mode, the parallel
+flags, TensorBoard/wandb, the live viewer and `logging.vis_freq` snapshots
+wait for later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..data import importance
+from ..eval import render_loop
+from ..ops import pipeline
+from ..train import checkpoint, trainer
+from ..utils import config as config_lib
+from ..utils.logging import MetricLogger, logger, setup_logging
+from . import common
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default="omnire_ms_bilateral",
+                   choices=sorted(configs.PRESETS))
+    p.add_argument("--output_root", default="./work_dirs")
+    p.add_argument("--run_name", default="run")
+    p.add_argument("--resume_from", default=None,
+                   help="checkpoint file to continue from")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("opts", nargs="*", help="dotlist overrides key=value")
+    return p.parse_args(argv)
+
+
+def device_of(name: str) -> torch.device:
+    """The requested device; a CUDA device must exist (no fallback)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available")
+    return dev
+
+
+def launch_counts() -> dict:
+    """Launch counters of the port's CUDA kernel wrappers."""
+    from ..ops import (cubemap_cuda, expand_cuda, rasterize_cuda, scan_cuda,
+                       segsum_cuda)
+
+    return {"expand": expand_cuda.expand_gather.launches,
+            "rasterize_fwd": rasterize_cuda.rasterize_fwd.launches,
+            "rasterize_bwd": rasterize_cuda.rasterize_bwd.launches,
+            "segment_sum": segsum_cuda.segment_sum.launches,
+            "segment_sum_rows": segsum_cuda.segment_sum_rows.launches,
+            "splat_grad": cubemap_cuda.splat_grad.launches,
+            "scan": scan_cuda.scan_rows.launches}
+
+
+def build(cfg, seed: int, dev):
+    """Scene, trainer config and fresh training state of a config tree."""
+    tcfg, data, params, statics, aux, masks = common.build_real_scene(
+        cfg, seed, dev)
+    state = trainer.init_state(
+        tcfg, params, masks, aux,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    return tcfg, data, statics, state
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = device_of(args.device)
+    cfg = config_lib.apply_dotlist(config_lib.wrap(configs.PRESETS[args.config]),
+                                   args.opts)
+    if cfg.get_path("data.synthetic", False):
+        raise NotImplementedError("synthetic mode is not ported yet: the "
+                                  "synthetic-CLI slice")
+    log_dir = os.path.join(args.output_root, args.run_name)
+    os.makedirs(log_dir, exist_ok=True)
+    setup_logging(log_dir)
+    config_lib.save_config(cfg, os.path.join(log_dir, "config.json"))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    t_build = time.perf_counter()
+    tcfg, data, statics, state = build(cfg, args.seed, dev)
+    test_stride = cfg.get_path("data.test_image_stride", 10)
+    train_indices, test_indices = data.split_train_test(test_stride)
+    neighbor_map = data.neighbor_train_indices(test_stride)
+    logger.info(f"classes: {trainer.gaussian_classes(tcfg)}  images: "
+                f"{data.num_images}  device: {dev}  built in "
+                f"{time.perf_counter() - t_build:.1f}s")
+
+    sampler = importance.ImageSampler(
+        data.num_images, cfg.get_path("data.num_cams", 1),
+        buffer_ratio=cfg.get_path("sampler.buffer_ratio", 0.5),
+        start_enhance_weight=cfg.get_path("sampler.start_enhance_weight", 1.0),
+        seed=args.seed)
+
+    cap_policy = cfg.get_path("render.capacity_policy", "rebucket")
+    if cap_policy not in ("rebucket", "error", "ignore"):
+        raise ValueError(f"render.capacity_policy={cap_policy!r}")
+    cap_margin = float(cfg.get_path("render.capacity_margin", 1.35))
+    cap_floor = int(cfg.get_path("render.capacity_floor",
+                                 pipeline.CAP_BUCKET))
+    rebucket_after = int(cfg.get_path("render.rebucket_after", 2))
+    cap_state = {"bad_windows": 0, "max_isects": 0}
+
+    if args.resume_from:
+        state, extra = checkpoint.restore_checkpoint(args.resume_from, state)
+        sampler.load_state_dict(extra["sampler"])
+        cap_state.update(extra["cap_state"])
+        tcfg = dataclasses.replace(tcfg,
+                                   isect_capacity=extra["isect_capacity"])
+        logger.info(f"resumed from {args.resume_from} @ step {state.step}")
+
+    spd = max(int(cfg.get_path("trainer.steps_per_dispatch", 1) or 1), 1)
+    max_steps = tcfg.max_steps
+    ckpt_every = cfg.get_path("logging.ckpt_every", 10000)
+    log_every = cfg.get_path("logging.log_every", 100)
+    if int(cfg.get_path("logging.vis_freq", 0) or 0) > 0:
+        logger.info("logging.vis_freq snapshots are not ported yet; skipped")
+    refresh_every = int(cfg.get_path("sampler.refresh_every", 0) or 0)
+    refresh_downscale = int(cfg.get_path("sampler.refresh_downscale", 4))
+    flush_every = max(int(cfg.get_path("logging.metrics_flush_every",
+                                       min(log_every, 50)) or 1), 1)
+    rs_double = int(cfg.get_path("res_schedule.double_steps", 0) or 0)
+    rs_times = int(cfg.get_path("res_schedule.downscale_times", 0) or 0)
+    mlogger = MetricLogger(output_file=os.path.join(log_dir, "metrics.json"))
+    ckpt_dir = os.path.join(log_dir, "checkpoints")
+
+    def sched_downscale(step: int) -> int:
+        """Coarse to fine (base.py:142-146): 1/2^downscale_times of the
+        resolution at first, doubling every double_steps."""
+        if rs_double <= 0:
+            return 1
+        return 2 ** max(rs_times - step // rs_double, 0)
+
+    def refresh_error_buffer() -> None:
+        """Every train image's error at low resolution, so rarely drawn
+        images do not keep stale priorities (pixel_source.py:948-983)."""
+        res = render_loop.render_images(
+            tcfg, state, statics, data, train_indices,
+            neighbor_map=neighbor_map, downscale=refresh_downscale)
+        for idx, pred, gt in zip(train_indices, res["rgbs"], res["gt_rgbs"]):
+            sampler.update_error(int(idx), max(
+                float(torch.mean(torch.abs(pred - gt))), 1e-6))
+        logger.info(f"error buffer refreshed over {len(train_indices)} "
+                    f"train images at 1/{refresh_downscale} res")
+
+    # what train_summary.json reports besides the counts and times
+    summary = {"refines": [], "rebuckets": [], "overflow_steps": 0,
+               "nonfinite_params_max": 0.0, "downscales": {}}
+    last_points = {}
+    pending: list = []   # (step, image indices, metrics of device scalars)
+
+    def flush_pending() -> None:
+        """One device-to-host copy of the window's metrics, then the
+        guards, the sampler's error updates and the capacity policy."""
+        nonlocal tcfg
+        if not pending:
+            return
+        keys = sorted(pending[0][2])
+        vals = torch.stack([torch.stack([m[k].float() for k in keys])
+                            for _, _, m in pending]).cpu().numpy()
+        window_overflow = 0.0
+        for (s, idxs_s, _), row in zip(pending, vals):
+            m = dict(zip(keys, row.tolist()))
+            if not np.isfinite(m["loss"]):
+                raise RuntimeError(f"non-finite loss at step {s} (detected "
+                                   f"<= {flush_every} steps later): {m}")
+            summary["nonfinite_params_max"] = max(
+                summary["nonfinite_params_max"], m["nonfinite_params"])
+            if m["nonfinite_params"] > 0:
+                raise RuntimeError(
+                    f"{int(m['nonfinite_params'])} non-finite parameter "
+                    f"entries at step {s} (loss {m['loss']:.4f})")
+            for i in idxs_s:
+                sampler.update_error(int(i), max(m["loss"], 1e-6))
+            window_overflow = max(window_overflow, m["isect_overflow"])
+            summary["overflow_steps"] += int(m["isect_overflow"] > 0)
+            cap_state["max_isects"] = max(cap_state["max_isects"],
+                                          int(m["num_isects"]))
+            points = {k[len("num_points/"):]: int(v) for k, v in m.items()
+                      if k.startswith("num_points/")}
+            if s > 0 and s % tcfg.density.refine_interval == 0:
+                summary["refines"].append({
+                    "step": s, "before": last_points.get(s - 1),
+                    "after": points, "dropped": int(m["refine_dropped"])})
+            last_points.clear()
+            last_points[s] = points
+        last_step = pending[-1][0]
+        pending.clear()
+        if cap_policy == "ignore" or window_overflow <= 0:
+            cap_state["bad_windows"] = 0
+            cap_state["max_isects"] = 0
+            return
+        if cap_policy == "error":
+            raise RuntimeError(
+                f"intersection capacity {tcfg.isect_capacity} overflowed "
+                f"(num_isects={cap_state['max_isects']}) at step <= "
+                f"{last_step}; render.capacity_policy=error")
+        cap_state["bad_windows"] += 1
+        if cap_state["bad_windows"] < rebucket_after:
+            return
+        new_cap = max(
+            pipeline.autotune_capacity(cap_state["max_isects"],
+                                       margin=cap_margin, floor=cap_floor),
+            tcfg.isect_capacity + pipeline.CAP_BUCKET
+            if cap_floor >= pipeline.CAP_BUCKET
+            else 2 * tcfg.isect_capacity)
+        logger.warning(
+            f"isect overflow persisted {cap_state['bad_windows']} flush "
+            f"windows (num_isects={cap_state['max_isects']}): capacity "
+            f"{tcfg.isect_capacity} -> {new_cap}")
+        summary["rebuckets"].append({"step": last_step,
+                                     "from": tcfg.isect_capacity,
+                                     "to": new_cap})
+        tcfg = dataclasses.replace(tcfg, isect_capacity=new_cap)
+        cap_state["bad_windows"] = 0
+        cap_state["max_isects"] = 0
+
+    def save(step=None) -> str:
+        return checkpoint.save_checkpoint(
+            ckpt_dir, state, step=step,
+            extra={"sampler": sampler.state_dict(),
+                   "cap_state": dict(cap_state),
+                   "isect_capacity": tcfg.isect_capacity})
+
+    def window_len(s: int) -> int:
+        """Steps from s in one window: at most steps_per_dispatch, ending
+        before the next pre-step event (error-buffer refresh, resolution
+        change) and right after the next post-step event (log, flush,
+        checkpoint)."""
+        k = min(spd, max_steps - s)
+        for prd in (refresh_every, rs_double):
+            if prd > 0:
+                k = min(k, prd - s % prd)
+        for prd in (log_every, flush_every, ckpt_every):
+            if prd and prd > 0:
+                r = s % prd
+                k = min(k, (prd - r if r else 0) + 1)
+        return max(k, 1)
+
+    start_step = step = int(state.step)
+    t0 = time.perf_counter()
+    t_warm, warm_step, ckpt_s = None, None, 0.0
+    while step < max_steps:
+        if refresh_every > 0 and step > 0 and step % refresh_every == 0:
+            refresh_error_buffer()
+        ds = sched_downscale(step)
+        k = window_len(step)
+        idxs = [int(sampler.propose(train_indices)) for _ in range(k)]
+        for j, idx in enumerate(idxs):
+            state, metrics = trainer.train_step(tcfg, statics, state,
+                                                data.get_batch(idx, ds))
+            pending.append((step + j, [idx], metrics))
+        summary["downscales"][str(ds)] = summary["downscales"].get(
+            str(ds), 0) + k
+        last = step + k - 1       # post-step events key off the window end
+        if last % flush_every == 0 or last == max_steps - 1:
+            flush_pending()
+            if t_warm is None:
+                # the first flushed window is the warm-up
+                t_warm, warm_step = time.perf_counter(), last + 1
+        if last % log_every == 0:
+            flush_pending()
+            m = {kk: float(v) for kk, v in metrics.items()
+                 if not kk.startswith("loss/")}
+            mlogger.update(**m)
+            mlogger.dump(last)
+            logger.info(
+                f"step {last}/{max_steps} "
+                + " ".join(f"{kk}={v:.4f}" for kk, v in m.items())
+                + f" ({(time.perf_counter() - t0) / max(last + 1 - start_step, 1):.3f}s/it)")
+        if last > 0 and last % ckpt_every == 0:
+            flush_pending()
+            t1 = time.perf_counter()
+            logger.info(f"checkpoint: {save()}")
+            ckpt_s += time.perf_counter() - t1
+        step += k
+    flush_pending()
+    t_end = time.perf_counter()
+    counts = launch_counts()
+    path = save(step=max_steps)
+    logger.info(f"final checkpoint: {path}")
+
+    steps_run = max_steps - start_step
+    timed = (max_steps - warm_step) if warm_step is not None else 0
+    summary.update({
+        "start_step": start_step, "end_step": max_steps,
+        "steps": steps_run,
+        "wall_s": t_end - t0,
+        "checkpoint_s": ckpt_s,
+        "steps_per_s_after_warmup": (
+            timed / (t_end - t_warm - ckpt_s) if timed > 0 else None),
+        "warmup_steps": (warm_step - start_step) if warm_step else None,
+        "isect_capacity": tcfg.isect_capacity,
+        "launches": counts,
+        "device": str(dev),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+        "final_points": last_points.get(max_steps - 1),
+    })
+
+    # quick eval on the test split
+    if len(test_indices):
+        results = render_loop.render_images(
+            tcfg, state, statics, data, test_indices[:20],
+            neighbor_map=neighbor_map, compute_metrics=True)
+        agg = render_loop.aggregate_metrics(results["metrics"])
+        logger.info(f"test metrics: {agg}")
+        with open(os.path.join(log_dir, "test_metrics.json"), "w") as f:
+            json.dump(agg, f, indent=2)
+    with open(os.path.join(log_dir, "train_summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,129 @@
+"""Scene and model construction from a scene's initial points: port of
+bilateral_driving_tpu/train/setup.py for the flagship classes (vanilla
+Background, RigidNodes, DeformableNodes, EnvLight, multi-scale bilateral).
+
+Every random draw (quaternions, instance codes, the deformation network)
+comes from an explicit torch.Generator; the PVG, deformgs and SMPL builders
+wait for their slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core import sampling, sh as sh_lib
+from ..models import bilateral, deform, encoders, sky as sky_mod
+
+INIT_OPACITY = 0.1
+
+
+def random_quats(generator: torch.Generator, n: int) -> torch.Tensor:
+    """(n, 4) uniform random unit quaternions (reference basics.py:47-62)."""
+    u, v, w = torch.rand((n, 3), generator=generator,
+                         device=generator.device).unbind(-1)
+    return torch.stack([
+        torch.sqrt(1.0 - u) * torch.sin(2.0 * math.pi * v),
+        torch.sqrt(1.0 - u) * torch.cos(2.0 * math.pi * v),
+        torch.sqrt(u) * torch.sin(2.0 * math.pi * w),
+        torch.sqrt(u) * torch.cos(2.0 * math.pi * w),
+    ], dim=-1)
+
+
+def gaussian_dict(generator, capacity: int, means, colors, scales,
+                  sh_degree: int = 3, init_opacity: float = INIT_OPACITY):
+    """Fixed-capacity Gaussian parameters of a point cloud and its liveness
+    mask (create_from_pcd, vanilla.py:79-121): `scales` (N,) or (N, 3),
+    random quats, the given opacity, SH DC from the colours; slots past the
+    points are dead (mask False, logit -20, identity quats)."""
+    n = means.shape[0]
+    dev = means.device
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < {n} points")
+    if scales.dim() == 1:
+        scales = scales[:, None].expand(n, 3)
+
+    def pad(x, fill=0.0):
+        out = torch.full((capacity,) + tuple(x.shape[1:]), fill,
+                         dtype=torch.float32, device=dev)
+        out[:n] = x
+        return out
+
+    quats = torch.zeros((capacity, 4), device=dev)
+    quats[:, 0] = 1.0
+    quats[:n] = random_quats(generator, n).to(dev)
+    logit = torch.log(torch.tensor(init_opacity / (1.0 - init_opacity),
+                                   dtype=torch.float32))
+    k = sh_lib.num_sh_bases(sh_degree)
+    params = {
+        "means": pad(means),
+        "log_scales": pad(torch.log(torch.clamp(scales, min=1e-8))),
+        "quats": quats,
+        "logit_opacities": pad(logit.expand(n, 1).to(dev), -20.0),
+        "sh_dc": pad(sh_lib.rgb_to_sh(colors)[:, None, :]),
+        "sh_rest": torch.zeros((capacity, k - 1, 3), device=dev),
+    }
+    mask = torch.arange(capacity, device=dev) < n
+    return params, mask
+
+
+def knn_scales(points: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Scale init from the mean 3-NN distance (basics.py:208-224)."""
+    return torch.clamp(sampling.knn_mean_distance(points, k=k), min=1e-7)
+
+
+def build_background(generator, capacity: int, means, colors,
+                     sh_degree: int = 3):
+    return gaussian_dict(generator, capacity, means, colors,
+                         knn_scales(means), sh_degree)
+
+
+def build_rigid(generator, capacity: int, means, colors, point_ids,
+                quats_fi4, trans_fi3, frame_valid, sizes, sh_degree: int = 3):
+    """means are instance-local; point_ids (N,) instance per point.
+    Returns (params, statics, aux, mask)."""
+    params, mask = gaussian_dict(generator, capacity, means, colors,
+                                 knn_scales(means), sh_degree)
+    params["instances_quats"] = quats_fi4
+    params["instances_trans"] = trans_fi3
+    statics = {"instances_fv": frame_valid, "instances_size": sizes}
+    pid = torch.zeros((capacity,), dtype=torch.int32, device=means.device)
+    pid[:point_ids.shape[0]] = point_ids.to(torch.int32)
+    return params, statics, {"point_ids": pid}, mask
+
+
+def build_deformable(generator, capacity: int, means, colors, point_ids,
+                     quats_fi4, trans_fi3, frame_valid, sizes,
+                     num_instances: int, sh_degree: int = 3,
+                     embed_dim: int = 16, net_depth: int = 8,
+                     net_width: int = 256):
+    """RigidNodes plus per-instance codes and the conditional deformation
+    network (U(+-1/sqrt(fan_in)) weights)."""
+    params, statics, aux, mask = build_rigid(
+        generator, capacity, means, colors, point_ids, quats_fi4, trans_fi3,
+        frame_valid, sizes, sh_degree)
+    dev = means.device
+    params["instance_embeds"] = encoders.embedding_init(
+        num_instances, embed_dim, generator, dev)
+    params["deform_net"] = deform.DeformNetwork(
+        depth=net_depth, width=net_width, embed_dim=embed_dim
+    ).reset_parameters(generator).to(dev)
+    return params, statics, aux, mask
+
+
+def build_models(cfg, device="cuda"):
+    """The non-Gaussian models keyed as the trainer expects: the EnvLight
+    sky and the multi-scale bilateral grids."""
+    if cfg.sky_model != "envlight":
+        raise NotImplementedError(f"sky_model={cfg.sky_model!r} is not "
+                                  "ported yet: the sky-MLP slice")
+    if cfg.affine_model != "multiscale_bilateral":
+        raise NotImplementedError(f"affine_model={cfg.affine_model!r} is "
+                                  "not ported yet: the appearance-variants "
+                                  "slice")
+    if cfg.use_camera_opt or cfg.use_camera_perturb:
+        raise NotImplementedError("camera refinement is not ported yet: "
+                                  "the camera-refinement slice")
+    return {"Sky": sky_mod.init_envlight(cfg.envlight_resolution, device),
+            "Affine": bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
+                                                device)}

@@ -163,9 +163,11 @@ def merge_statics(statics, aux):
 
 def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
                       step: int, frame: int, t: float,
-                      in_test_set: bool = False):
+                      in_test_set: bool = False, opacity_multiplier=None):
     """Per-class Gaussians + concat. `statics[name]` already holds that
-    class's aux arrays (see merge_statics)."""
+    class's aux arrays (see merge_statics). `opacity_multiplier` (N,)
+    scales the concatenated opacities (the per-class decomposed renders
+    zero every class but one)."""
     _check_flagship(cfg)
     bundles = {"Background": background.gaussians(
         params["Background"], masks["Background"], cam_origin, step,
@@ -182,19 +184,24 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
             cfg.num_frames, t, in_test_set,
             deformable.DeformableConfig(cfg.sh_degree,
                                         cfg.sh_degree_interval))
-    return nodes.concat_bundles(bundles)
+    merged, labels = nodes.concat_bundles(bundles)
+    if opacity_multiplier is not None:
+        merged = merged._replace(
+            opacities=merged.opacities * opacity_multiplier)
+    return merged, labels
 
 
 def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
             in_test_set: bool = False, novel_view: bool = False,
-            neighbor_idx=None, means2d_dummy=None):
+            neighbor_idx=None, means2d_dummy=None, opacity_multiplier=None):
     """Render one camera, differentiably where grad mode is on.
 
     batch: camera_to_world (4, 4), intrinsics (3, 3), pixels (H, W, 3),
     viewdirs (H, W, 3) world view directions, img_idx, frame_idx (ints) and
     normed_time (float). On test views, `neighbor_idx` lists the training
     images whose bilateral grids are averaged. `means2d_dummy`: (N, 2)
-    zeros whose gradient is the screen-space gradient of each Gaussian.
+    zeros whose gradient is the screen-space gradient of each Gaussian;
+    `opacity_multiplier`: see collect_gaussians.
     """
     h, w = batch["pixels"].shape[:2]
     c2w = batch["camera_to_world"]
@@ -202,7 +209,7 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     frame = int(batch["frame_idx"])
     merged, labels = collect_gaussians(
         cfg, params, statics, masks, c2w[:3, 3], step, frame,
-        float(batch["normed_time"]), in_test_set)
+        float(batch["normed_time"]), in_test_set, opacity_multiplier)
 
     rcfg = pipeline.RasterizeConfig(
         near_plane=cfg.near_plane, far_plane=cfg.far_plane,

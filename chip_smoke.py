@@ -4,11 +4,12 @@
 Renders the flagship omnire_ms_bilateral scene at full width on one NVIDIA
 GPU through the port's entry points (eval.render_loop.render_images and
 train.trainer.forward), takes flagship training steps on it
-(train.trainer.train_step), and holds every hand-written kernel of those
-paths against its plain PyTorch version. Phases, each printed on its own
-line with its result and elapsed seconds:
+(train.trainer.train_step), trains, resumes and evaluates a scene from disk
+through the port's CLI (tools.train, tools.eval), and holds every
+hand-written kernel of those paths against its plain PyTorch version.
+Phases, each printed on its own line with its result and elapsed seconds:
 
-  env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, the card
+  env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, PIL, the card
   build     nvcc builds of csrc/*.cu, cold and warm
   scene     the flagship scene from a seed: nuScenes at 1/3 (533 x 300),
             1,000,000 live background Gaussians in a 2,097,152 capacity,
@@ -16,12 +17,14 @@ line with its result and elapsed seconds:
             R=1024, multi-scale bilateral grids over 240 images; the
             intersection capacity from probe_num_isects + autotune_capacity
   kernels   each render kernel against its plain version at the main
-            path's shapes
+            path's shapes; the prefix scan at tools/driver_smoke.py's
+            shapes (float32 sum, max, min) and on the main path's int32
+            tile counts (cumsum) and a capacity-long int32 cummax
   render    6 frames (train views, test views with neighbour-averaged
             affines, one novel view) with the launch counters read per frame
   reference one frame again through the plain versions, compared
-  times     CUDA-event times of each render kernel, its plain version and
-            its bound
+  times     CUDA-event times of each render kernel and the scan, its plain
+            version, its bound and (the scan) torch.cumsum
   profile   one frame under torch.profiler: device busy time, idle share,
             the number of device operations and those that take the most
             device time
@@ -47,6 +50,13 @@ line with its result and elapsed seconds:
   train_times    CUDA-event times of each training kernel, its plain
             version, one library call that computes the same function, and
             its bound
+  cli       the port's CLI in subprocesses with PIL blocked:
+            tools.train on tests/fixtures/proto_scene (its pixel pack) at
+            the flagship widths for CLI_STEPS steps (two refines, a
+            resolution-schedule crossing, checkpoints), a resume from the
+            step-150 checkpoint, and tools.eval; steps/s, peak memory,
+            guards, refinements and kernel launches of the train run, the
+            metrics finite
 
 Then a `kernels` JSON line, the card's name and power limit as nvidia-smi
 gives them, and, last, {"ok": true, "device": {...}}. Any failed check
@@ -95,6 +105,27 @@ BWD_RTOL = 1e-4
 SUM_RTOL = 1e-5
 # one step's gradients, kernels vs plain, relative norm per parameter leaf
 GRADS_RTOL = 1e-3
+# scan against its plain version: max and min and every int32 scan
+# bit-exact; float32 sums to tools/driver_smoke.py's rtol/atol and, per
+# element, within SCAN_SUM_REL of the prefix sum of |x| (the two sum the
+# same terms in other groupings)
+SCAN_RTOL, SCAN_ATOL, SCAN_SUM_REL = 1e-4, 1e-3, 1e-5
+# the CLI run: proto_scene at the flagship widths (data.downscale=1: the
+# fixture is 96 x 64 already)
+CLI_STEPS, CLI_RESUME_STEP, CLI_RESUME_STEPS = 300, 151, 20
+CLI_OVERRIDES = [
+    "data.scene_dir=tests/fixtures/proto_scene",
+    "data.pixel_pack=tests/fixtures/proto_scene_pixels.npz",
+    "data.cameras=[0,1]", "data.num_cams=2", "data.downscale=1",
+    f"trainer.max_steps={CLI_STEPS}",
+    "res_schedule.double_steps=100", "res_schedule.downscale_times=1",
+    "density.warmup_steps=100", "density.refine_interval=100",
+    "trainer.steps_per_dispatch=4", "logging.ckpt_every=150",
+    "logging.log_every=50"]
+# runs a module as __main__ with PIL made unimportable
+NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
+          "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
+          "run_name='__main__', alter_sys=True)")
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
 # The least work each kernel must do on its inputs, for its bound.
@@ -155,13 +186,28 @@ def patched(*changes):
             setattr(obj, name, value)
 
 
-def kernels_replaced(pipeline, expand_gather, rasterize_fwd):
-    """Point the pipeline's two render kernel calls at stand-ins."""
+def plain_scans():
+    """binning's scan_utils with the scan's plain version in place of the
+    kernel."""
+    from bilateral_driving_tpu_torch.ops import scan_cuda
+
+    def scan(op):
+        return lambda x: scan_cuda.scan_rows_plain(x[None], op)[0]
+
+    return types.SimpleNamespace(cumsum=scan("sum"), cummax=scan("max"),
+                                 cummin=scan("min"))
+
+
+def kernels_replaced(pipeline, binning, expand_gather, rasterize_fwd,
+                     scans):
+    """Point the pipeline's two render kernel calls and binning's prefix
+    scans (`scans`: a stand-in for ops.scan_utils) at stand-ins."""
     return patched(
         (pipeline, "expand_cuda",
          types.SimpleNamespace(expand_gather=expand_gather)),
         (pipeline, "rasterize_cuda",
-         types.SimpleNamespace(rasterize_fwd=rasterize_fwd)))
+         types.SimpleNamespace(rasterize_fwd=rasterize_fwd)),
+        (binning, "scan_utils", scans))
 
 
 def capturing(captured, name, fn):
@@ -242,16 +288,18 @@ def restore(saved, generator):
     return trainer.TrainerState(**copy.deepcopy(saved), generator=generator)
 
 
-def training(args, cfg, scene, state, statics, dev) -> list:
-    """The training phases (targets .. train_profile); returns the four
-    training kernels' entries of the `kernels` line."""
+def training(args, cfg, scene, state, statics, dev):
+    """The training phases (targets .. train_times); returns the four
+    training kernels' entries of the `kernels` line and the train run's
+    scan launches per step."""
     import torch
 
     from bilateral_driving_tpu_torch import configs
     from bilateral_driving_tpu_torch.data import synthetic
-    from bilateral_driving_tpu_torch.ops import (cubemap, cubemap_cuda,
-                                                 expand_cuda, pipeline,
-                                                 rasterize_cuda, segsum_cuda)
+    from bilateral_driving_tpu_torch.ops import (binning, cubemap,
+                                                 cubemap_cuda, expand_cuda,
+                                                 pipeline, rasterize_cuda,
+                                                 scan_cuda, segsum_cuda)
     from bilateral_driving_tpu_torch.train import trainer
 
     wrappers = {"expand": expand_cuda.expand_gather,
@@ -259,7 +307,8 @@ def training(args, cfg, scene, state, statics, dev) -> list:
                 "rasterize_bwd": rasterize_cuda.rasterize_bwd,
                 "segment_sum": segsum_cuda.segment_sum,
                 "segment_sum_rows": segsum_cuda.segment_sum_rows,
-                "splat_grad": cubemap_cuda.splat_grad}
+                "splat_grad": cubemap_cuda.splat_grad,
+                "scan": scan_cuda.scan_rows}
     # the main path's kernels: its backward sums segments with segment_sum
     path = [k for k in wrappers if k != "segment_sum_rows"]
 
@@ -326,7 +375,8 @@ def training(args, cfg, scene, state, statics, dev) -> list:
                 segment_sum=lambda d, o: segsum_cuda.segment_sum_plain(
                     list(d), o))),
             (cubemap, "cubemap_cuda", types.SimpleNamespace(
-                splat_grad=cubemap_cuda.splat_grad_plain))):
+                splat_grad=cubemap_cuda.splat_grad_plain)),
+            (binning, "scan_utils", plain_scans())):
         _, _, _, g_p, gd_p = trainer.compute_grads(cfg, statics, tstate,
                                                    batch)
     torch.cuda.synchronize()
@@ -598,7 +648,86 @@ def training(args, cfg, scene, state, statics, dev) -> list:
           splat_pixels=npix, splat_texels=touched, splat_bytes=splat_bytes,
           nvidia_smi=nvidia_smi())
 
-    return out
+    return out, launches["scan"] / len(steps)
+
+
+def run_cli(module: str, *argv) -> float:
+    """Run a CLI module of the port in a subprocess with PIL blocked;
+    raises with its output's end if it fails. Returns seconds."""
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", NO_PIL,
+                        f"bilateral_driving_tpu_torch.tools.{module}", *argv],
+                       cwd=ROOT, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SmokeError(f"tools.{module} exited {r.returncode}:\n"
+                         f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return time.perf_counter() - t1
+
+
+def cli(dev):
+    """The cli phase: train, resume and evaluate proto_scene through the
+    port's CLI. The run directories (their checkpoints hold parameters
+    and Adam moments of 2,097,152 background slots) go to
+    work_dirs/chip_smoke_cli in the checkout and are removed after."""
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    run_dir = os.path.join(out, "train")
+    train_s = run_cli("train", "--output_root", out, "--run_name", "train",
+                      *CLI_OVERRIDES)
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    check(summ["steps"] == CLI_STEPS, f"trained {summ['steps']} steps")
+    launched = summ["launches"]
+    check(launched["segment_sum_rows"] == 0 and all(
+        launched[k] >= CLI_STEPS for k in launched
+        if k != "segment_sum_rows"),
+          f"a kernel missed training steps of the CLI run: {launched}")
+    check(summ["nonfinite_params_max"] == 0 and summ["overflow_steps"] == 0,
+          f"guards: {summ}")
+    check(len(summ["refines"]) >= 2, f"refines: {summ['refines']}")
+    check(len(summ["downscales"]) >= 2, "no resolution-schedule crossing")
+
+    ckpt = os.path.join(run_dir, "checkpoints",
+                        f"checkpoint_{CLI_RESUME_STEP}.pt")
+    check(os.path.exists(ckpt), f"no checkpoint {ckpt}")
+    resume_s = run_cli(
+        "train", "--output_root", out, "--run_name", "resume",
+        "--resume_from", ckpt, *CLI_OVERRIDES,
+        f"trainer.max_steps={CLI_RESUME_STEP + CLI_RESUME_STEPS}")
+    with open(os.path.join(out, "resume", "train_summary.json")) as f:
+        resumed = json.load(f)
+    check((resumed["start_step"], resumed["end_step"])
+          == (CLI_RESUME_STEP, CLI_RESUME_STEP + CLI_RESUME_STEPS),
+          f"resumed {resumed['start_step']}..{resumed['end_step']}")
+
+    eval_s = run_cli("eval", "--log_dir", run_dir, "--compute_geo")
+    metrics = {}
+    for split in ("test", "full"):
+        with open(os.path.join(run_dir, f"metrics_{split}.json")) as f:
+            metrics[split] = {k: v for k, v in json.load(f).items()
+                              if isinstance(v, float)}
+        check(metrics[split] and all(math.isfinite(v)
+                                     for v in metrics[split].values()),
+              f"metrics_{split}.json not finite: {metrics[split]}")
+    phase("cli", t0, steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          warmup_steps=summ["warmup_steps"],
+          peak_mem_bytes=summ["peak_mem_bytes"],
+          nonfinite_params=summ["nonfinite_params_max"],
+          overflow_steps=summ["overflow_steps"],
+          isect_capacity=summ["isect_capacity"],
+          rebuckets=summ["rebuckets"], refines=summ["refines"],
+          steps_per_downscale=summ["downscales"],
+          final_points=summ["final_points"], launches=launched,
+          resumed_steps=[resumed["start_step"], resumed["end_step"]],
+          resumed_launches=resumed["launches"],
+          metrics_test=metrics["test"],
+          metrics_full={k: metrics["full"][k] for k in ("psnr", "ssim")},
+          train_s=round(train_s, 2), resume_s=round(resume_s, 2),
+          eval_s=round(eval_s, 2), device=str(dev),
+          nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
 
 
 def main() -> int:
@@ -624,8 +753,10 @@ def main() -> int:
     from bilateral_driving_tpu_torch import configs
     from bilateral_driving_tpu_torch.data import synthetic
     from bilateral_driving_tpu_torch.eval import render_loop
-    from bilateral_driving_tpu_torch.ops import (cuda_build, expand_cuda,
-                                                 pipeline, rasterize_cuda)
+    from bilateral_driving_tpu_torch.ops import (binning, cuda_build,
+                                                 expand_cuda, pipeline,
+                                                 rasterize_cuda, scan_cuda,
+                                                 scan_utils)
     from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
     from bilateral_driving_tpu_torch.train import trainer
 
@@ -640,6 +771,7 @@ def main() -> int:
           nvcc_version=nvcc_ver.splitlines()[-1],
           ninja=shutil.which("ninja"),
           yaml=importlib.util.find_spec("yaml") is not None,
+          pil=importlib.util.find_spec("PIL") is not None,
           device=torch.cuda.get_device_name(0),
           device_count=torch.cuda.device_count(), nvidia_smi=smi)
 
@@ -712,12 +844,15 @@ def main() -> int:
     t0 = time.perf_counter()
     captured = {}
     with kernels_replaced(
-            pipeline,
+            pipeline, binning,
             capturing(captured, "expand", expand_cuda.expand_gather),
             capturing(captured, "rasterize_fwd",
-                      rasterize_cuda.rasterize_fwd)):
+                      rasterize_cuda.rasterize_fwd),
+            types.SimpleNamespace(
+                cumsum=capturing(captured, "scan", scan_utils.cumsum),
+                cummax=scan_utils.cummax)):
         render_loop.render_images(cfg, state, statics, data, TRAIN_VIEWS[:1])
-    check(set(captured) == {"expand", "rasterize_fwd"},
+    check(set(captured) == {"expand", "rasterize_fwd", "scan"},
           f"captured {sorted(captured)}")
 
     ea = captured["expand"][0]
@@ -745,18 +880,66 @@ def main() -> int:
     check(torch.isfinite(img_k).all(), "compositing kernel output not finite")
     check(raster_ok, f"compositing kernel differs from its plain version "
           f"(max abs err {raster_err})")
+    # the scan: tools/driver_smoke.py's float32 shapes, then the main
+    # path's int32 tile counts and a capacity-long int32 cummax
+    gs = torch.Generator(device=dev).manual_seed(args.seed)
+    scan_cases = {}
+    xs = {"rows": torch.randn((4, 1 << 16), generator=gs, device=dev),
+          "1d": torch.randn((1, 1 << 17), generator=gs, device=dev)}
+    for shape, x in xs.items():
+        for op in ("sum", "max", "min") if shape == "rows" else ("sum",):
+            got = (scan_cuda.scan_rows(x, op) if shape == "rows"
+                   else scan_cuda.scan1d(x[0], op)[None])
+            want = scan_cuda.scan_rows_plain(x, op)
+            err = float((got - want).abs().max())
+            if op == "sum":
+                ok = bool(torch.all(
+                    (got - want).abs() <= SCAN_ATOL + SCAN_RTOL * want.abs())
+                    and torch.all((got.double() - want.double()).abs()
+                                  <= SCAN_SUM_REL * torch.cumsum(
+                                      x.double().abs(), 1)))
+            else:
+                ok = torch.equal(got, want)
+            scan_cases[f"{shape} {tuple(x.shape)} f32 {op}"] = err
+            check(ok, f"scan {op} {tuple(x.shape)} differs from its plain "
+                  f"version (max abs err {err})")
+    scan_counts = captured["scan"][0][0]
+    got = scan_utils.cumsum(scan_counts)
+    want = scan_cuda.scan_rows_plain(scan_counts[None], "sum")[0]
+    check(got.dtype == torch.int32 and torch.equal(got, want),
+          "scan cumsum differs from its plain version on the main path's "
+          "tile counts")
+    scan_err = float((got.long() - want.long()).abs().max())
+    scan_cases[f"main path ({scan_counts.numel()},) i32 sum"] = scan_err
+    n_g = int(ea[1].shape[0]) - 1
+    mono_k = binning.fill_monotone(
+        torch.arange(n_g, dtype=torch.int32, device=dev), ea[1][:-1], ea[3])
+    with patched((binning, "scan_utils", plain_scans())):
+        mono_p = binning.fill_monotone(
+            torch.arange(n_g, dtype=torch.int32, device=dev), ea[1][:-1],
+            ea[3])
+    check(torch.equal(mono_k, mono_p), "scan cummax differs from its plain "
+          "version on a capacity-long int32 input")
+    scan_cases[f"fill_monotone ({ea[3]},) i32 max"] = float(
+        (mono_k.long() - mono_p.long()).abs().max())
     phase("kernels", t0, expand_bit_exact=expand_equal,
           expand_max_abs_err=expand_err,
           gaussians=int(ea[1].shape[0]) - 1, capacity=ea[3],
           rasterize_max_abs_err=raster_err,
           rasterize_tolerance=f"atol {RASTER_ATOL} + rtol {RASTER_RTOL}",
-          tiles=int(ra[1].shape[0]), live_chunks=int(n_live.sum()))
+          tiles=int(ra[1].shape[0]), live_chunks=int(n_live.sum()),
+          scan_max_abs_err=scan_cases,
+          scan_tolerance=(f"max, min and int32 bit-exact; f32 sum atol "
+                          f"{SCAN_ATOL} + rtol {SCAN_RTOL} and within "
+                          f"{SCAN_SUM_REL} x cumsum(|x|)"))
 
     # ---- render: the main path, counters from 0
     t0 = time.perf_counter()
-    launches = [0, 0]
-    expand_cuda.expand_gather.launches = 0
-    rasterize_cuda.rasterize_fwd.launches = 0
+    render_wrappers = (expand_cuda.expand_gather,
+                       rasterize_cuda.rasterize_fwd, scan_cuda.scan_rows)
+    launches = [0, 0, 0]
+    for f in render_wrappers:
+        f.launches = 0
     frames, frame_s = [], []
     views = ([(i, None) for i in TRAIN_VIEWS] + [(i, None) for i in TEST_VIEWS]
              + [(None, novel)])
@@ -777,9 +960,8 @@ def main() -> int:
             num_isects, overflow = o["info"]["num_isects"], o["info"]["overflow"]
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t1)
-        now = [expand_cuda.expand_gather.launches,
-               rasterize_cuda.rasterize_fwd.launches]
-        check(now[0] > launches[0] and now[1] > launches[1],
+        now = [f.launches for f in render_wrappers]
+        check(all(a > b for a, b in zip(now, launches)),
               f"a kernel did not launch for view {idx}: {launches} -> {now}")
         launches = now
         check(rgb.shape == (HEIGHT, WIDTH, 3), f"rgb shape {rgb.shape}")
@@ -792,7 +974,8 @@ def main() -> int:
                        "rgb_mean": round(float(rgb.mean()), 4)})
     n_frames = len(views)
     phase("render", t0, frames=frames,
-          launches={"expand": launches[0], "rasterize_fwd": launches[1]},
+          launches={"expand": launches[0], "rasterize_fwd": launches[1],
+                    "scan": launches[2]},
           ms_per_frame=[round(1e3 * s, 2) for s in frame_s])
 
     # ---- reference: one frame through the plain versions
@@ -800,15 +983,14 @@ def main() -> int:
     batch = data.get_batch(TRAIN_VIEWS[0])
     o_k = trainer.forward(cfg, state.params, full_statics, state.masks,
                           batch, state.step)
-    counts_before = [expand_cuda.expand_gather.launches,
-                     rasterize_cuda.rasterize_fwd.launches]
+    counts_before = [f.launches for f in render_wrappers]
     with kernels_replaced(
-            pipeline, expand_cuda.expand_gather_plain,
-            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a).img):
+            pipeline, binning, expand_cuda.expand_gather_plain,
+            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a).img,
+            plain_scans()):
         o_p = trainer.forward(cfg, state.params, full_statics, state.masks,
                               batch, state.step)
-    check([expand_cuda.expand_gather.launches,
-           rasterize_cuda.rasterize_fwd.launches] == counts_before,
+    check([f.launches for f in render_wrappers] == counts_before,
           "a kernel launched in the plain reference frame")
     frame_err = float((o_k["rgb"] - o_p["rgb"]).abs().max())
     check(frame_err <= FRAME_ATOL,
@@ -859,11 +1041,31 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         })
+    # the scan at the main path's shape: one int32 read and one int32
+    # write per element, one add each
+    n_scan = scan_counts.numel()
+    scan_bytes = 8 * n_scan
+    kernels.append({
+        "name": "scan", "route": "cuda",
+        "source": "bilateral_driving_tpu_torch/csrc/scan.cu",
+        "replaces": "bilateral_driving_tpu/ops/scan_pallas.py:74",
+        "launches": launches[2],
+        "launches_per_frame": launches[2] / n_frames,
+        "max_abs_err": scan_err,
+        "ms": cuda_ms(lambda: scan_utils.cumsum(scan_counts), 20),
+        "plain_ms": cuda_ms(lambda: scan_cuda.scan_rows_plain(
+            scan_counts[None], "sum"), 20),
+        "bound_ms": max(1e3 * scan_bytes / HBM_BYTES_PER_S,
+                        1e3 * n_scan / FP32_OPS_PER_S),
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.cumsum(
+            scan_counts, 0, dtype=torch.int32), 20),
+    })
     phase("times", t0, ms_per_frame_median=round(
         1e3 * sorted(frame_s)[len(frame_s) // 2], 2),
           used_gaussians=used_gaussians, expand_bytes=expand_bytes,
           live_entries=live_entries, blend_pairs=blend_pairs,
-          raster_ops=raster_ops,
+          raster_ops=raster_ops, scan_elements=n_scan, scan_bytes=scan_bytes,
           nvidia_smi=nvidia_smi())
 
     # ---- profile: where one frame's device time goes
@@ -876,7 +1078,12 @@ def main() -> int:
           device_idle_share_of_median_frame=prof.pop(
               "device_idle_share_of_median"), **prof)
 
-    kernels += training(args, cfg, scene, state, statics, dev)
+    train_kernels, scan_per_step = training(args, cfg, scene, state, statics,
+                                            dev)
+    kernels[2]["launches_per_step"] = scan_per_step
+    kernels += train_kernels
+
+    cli(dev)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
