@@ -6,7 +6,9 @@ The rasterization backward needs, for every Gaussian g, the sum of its
 per-intersection gradient columns over the contiguous range
 [offsets[g], offsets[g + 1]) of the Gaussian-major (un-sorted) entries. Both
 wrappers launch the CUDA kernel `csrc/segsum.cu` on CUDA tensors, each with
-its own launch counter, and run `segment_sum_plain` on CPU tensors.
+its own launch counter, and run `segment_sum_plain` on CPU tensors. The
+stacked input reaches the kernel as one base pointer and a row stride, the
+split input as an array of row pointers.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from . import cuda_build
 
 OUT_ROWS = 16      # segment_sum_rows' output rows, the table's row count
 MAX_ROWS = 16      # input rows one launch takes
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, ctypes.c_longlong, _P, _I, _I, _I, _P, _I, _P, _P]
 
 
 def segment_ids(offsets, length: int):
@@ -43,31 +47,22 @@ def segment_sum_plain(rows, offsets, n_out: int | None = None,
     return out
 
 
-def _check(rows, offsets, what: str):
-    cuda_build.require_cuda(offsets, *rows)
-    cap = rows[0].shape[0]
-    if len(rows) > MAX_ROWS:
-        raise ValueError(f"{what}: at most {MAX_ROWS} input rows")
-    if any(r.dtype != torch.float32 or r.shape != (cap,)
-           or not r.is_contiguous() for r in rows):
-        raise ValueError(f"{what}: need contiguous (cap,) f32 rows")
-    if offsets.dtype != torch.int32 or not offsets.is_contiguous():
+def _check_offsets(offsets, what: str):
+    if (offsets.dtype != torch.int32 or offsets.dim() != 1
+            or not offsets.is_contiguous()):
         raise ValueError(f"{what}: need contiguous (N+1,) int32 offsets "
                          "clamped to cap")
 
 
-def _launch(rows, offsets, n_out: int, row0: int):
+def _launch(base, stride: int, ptrs, n_rows: int, offsets, n_out: int,
+            row0: int, what: str):
     n = offsets.shape[0] - 1
     dev = offsets.device
     out = torch.empty((n_out, n), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
-    fn = cuda_build.load("segsum").segsum_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, i, p, i, p, p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("segsum", "segsum_launch", _ARGTYPES)
     cuda_build.check(fn(
-        ptrs, len(rows), row0, n_out, offsets.data_ptr(), n, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "segsum")
+        base, stride, ptrs, n_rows, row0, n_out, offsets.data_ptr(), n,
+        out.data_ptr(), cuda_build.current_stream(dev)), what)
     return out
 
 
@@ -76,11 +71,16 @@ def segment_sum(data, offsets):
     non-decreasing and clamped to cap -> (R, N) per-segment sums."""
     if data.device.type == "cpu":
         return segment_sum_plain(list(data), offsets)
-    if data.dim() != 2 or not data.is_contiguous():
-        raise ValueError("segment_sum: need contiguous (R, cap) data")
-    rows = list(data)
-    _check(rows, offsets, "segment_sum")
-    out = _launch(rows, offsets, len(rows), 0)
+    cuda_build.require_cuda(data, offsets)
+    if (data.dim() != 2 or not 1 <= data.shape[0] <= MAX_ROWS
+            or data.dtype != torch.float32 or not data.is_contiguous()):
+        raise ValueError(f"segment_sum: need contiguous (R <= {MAX_ROWS}, "
+                         f"cap) f32 data, got {data.dtype} "
+                         f"{tuple(data.shape)}")
+    _check_offsets(offsets, "segment_sum")
+    rows = data.shape[0]
+    out = _launch(data.data_ptr(), data.shape[1], None, rows, offsets, rows,
+                  0, "segment_sum")
     segment_sum.launches += 1
     return out
 
@@ -97,8 +97,15 @@ def segment_sum_rows(rows, offsets, row0: int = 0):
                          f"outside the {OUT_ROWS} output rows")
     if rows[0].device.type == "cpu":
         return segment_sum_plain(rows, offsets, OUT_ROWS, row0)
-    _check(rows, offsets, "segment_sum_rows")
-    out = _launch(rows, offsets, OUT_ROWS, row0)
+    cuda_build.require_cuda(offsets, *rows)
+    cap = rows[0].shape[0]
+    if any(r.dtype != torch.float32 or r.shape != (cap,)
+           or not r.is_contiguous() for r in rows):
+        raise ValueError("segment_sum_rows: need contiguous (cap,) f32 rows")
+    _check_offsets(offsets, "segment_sum_rows")
+    ptrs = (ctypes.c_void_p * len(rows))(*[r.data_ptr() for r in rows])
+    out = _launch(None, 0, ptrs, len(rows), offsets, OUT_ROWS, row0,
+                  "segment_sum_rows")
     segment_sum_rows.launches += 1
     return out
 

@@ -18,13 +18,18 @@ Phases, each printed on its own line with its result and elapsed seconds:
             intersection capacity from probe_num_isects + autotune_capacity
   kernels   each render kernel against its plain version at the main
             path's shapes; the prefix scan at tools/driver_smoke.py's
-            shapes (float32 sum, max, min) and on the main path's int32
-            tile counts (cumsum) and a capacity-long int32 cummax
+            shapes (float32 sum, max, min), on the main path's int32
+            tile counts (cumsum) and a capacity-long int32 cummax, at
+            int32 lengths around its tile and 3 rows x 20,000 (sum, max,
+            min), on a sum that wraps past 2^31, and on the main path's
+            counts 200 times back to back between other lengths, every
+            int32 result bit-exact
   render    6 frames (train views, test views with neighbour-averaged
             affines, one novel view) with the launch counters read per frame
   reference one frame again through the plain versions, compared
   times     CUDA-event times of each render kernel and the scan, its plain
-            version, its bound and (the scan) torch.cumsum
+            version, its bound and (the scan) torch.cumsum; the device
+            time alone of each kernel and library call, from the profiler
   profile   one frame under torch.profiler: device busy time, idle share,
             the number of device operations and those that take the most
             device time
@@ -46,10 +51,16 @@ Phases, each printed on its own line with its result and elapsed seconds:
             operations, top items
   train_kernels  each training kernel against its plain version on inputs
             captured from the train phase; segment_sum_rows, which the
-            main path does not call, on the main path's segment_sum rows
+            main path does not call, on the main path's segment_sum rows;
+            the segment lengths there; the segment sums on edge cases (one
+            Gaussian owning 100,000 entries, a Gaussian count that is not
+            a multiple of 32, offsets clamped at cap, every segment empty,
+            row0 > 0, 1 and 16 input rows), each launched twice and
+            bit-equal
   train_times    CUDA-event times of each training kernel, its plain
             version, one library call that computes the same function, and
-            its bound
+            its bound; the device time alone of each kernel and library
+            call, from the profiler
   cli       the port's CLI in subprocesses with PIL blocked:
             tools.train on tests/fixtures/proto_scene (its pixel pack) at
             the flagship widths for CLI_STEPS steps (two refines, a
@@ -242,6 +253,50 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time of one call of fn apart from the host's: the profiler's
+    device events (kernels, fills, copies) of `reps` calls after a warm-up,
+    summed and divided by reps; with the names of those events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    return (total / reps if total else "not measured",
+            sorted(e.key[:60] for e in events))
+
+
+def timed(name, source, replaces, launches, err, fn, plain, lib, nbytes,
+          nops, plain_reps: int = 3) -> dict:
+    """One entry of the `kernels` line: the kernel's, its plain version's
+    and its library call's times, device times and bound."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / FP32_OPS_PER_S
+    dev_ms, events = device_ms(fn)
+    lib_dev_ms, lib_events = (None, None) if lib is None else device_ms(lib)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(fn, 20),
+        "plain_ms": cuda_ms(plain, plain_reps),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None if lib is None else cuda_ms(lib, 20),
+        "device_ms": dev_ms, "device_events": events,
+        "library_device_ms": lib_dev_ms, "library_device_events": lib_events,
+    }
+
+
 def device_profile(fn, median_ms: float) -> dict:
     """Device busy time, idle share of `median_ms`, device operation count
     and top device items of one call of fn under torch.profiler."""
@@ -286,6 +341,78 @@ def restore(saved, generator):
     from bilateral_driving_tpu_torch.train import trainer
 
     return trainer.TrainerState(**copy.deepcopy(saved), generator=generator)
+
+
+def segsum_edge_cases(offs_main, cap_main: int, dev, seed: int) -> dict:
+    """The segment sums on edge cases, each launched twice (bit-equal) and
+    held against its plain version per output row; returns each case's
+    largest row relative norm. Payloads are standard normal but for the
+    long segment's."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import segsum_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    n_main = offs_main.shape[0] - 1
+
+    def offsets(counts, cap):
+        return torch.clamp(torch.cat([counts.new_zeros(1),
+                                      torch.cumsum(counts, 0)]),
+                           max=cap).int()
+
+    def data(n_rows, cap):
+        return torch.randn((n_rows, cap), generator=gen, device=dev)
+
+    # one Gaussian owning 100,000 entries among the main path's count of
+    # Gaussians, 85% of them empty and the rest owning 1-8 entries. Its
+    # payloads are multiples of 1/64 in [-1, 1], whose sums float32 holds
+    # exactly in any order: a float32 sum of 100,000 standard normal terms
+    # rounds by about 1e-5 of its size, which the plain version's atomic
+    # adds would bring into the comparison
+    c = torch.randint(1, 9, (n_main,), generator=gen, device=dev)
+    c[torch.rand(n_main, generator=gen, device=dev) < 0.85] = 0
+    c[n_main // 2] = 100_000
+    long_offs = offsets(c, int(c.sum()))
+    long_data = torch.randint(-64, 65, (10, int(long_offs[-1])),
+                              generator=gen, device=dev).float() / 64
+    c = torch.randint(0, 5, (1_000_003,), generator=gen, device=dev)
+    odd_offs = offsets(c, int(c.sum()))
+    c = torch.randint(0, 7, (200_003,), generator=gen, device=dev)
+    clamp_cap = int(c.sum()) // 2
+    clamp_offs = offsets(c, clamp_cap)
+    check(int((clamp_offs == clamp_cap).sum()) > 1000,
+          "the clamped case has no truncated segments")
+    empty_offs = torch.zeros(n_main + 1, dtype=torch.int32, device=dev)
+    main16 = data(16, cap_main)
+    cases = [
+        ("one Gaussian owning 100,000 entries", long_data, long_offs, None),
+        ("1,000,003 Gaussians", data(10, int(odd_offs[-1])), odd_offs, None),
+        ("offsets clamped at cap", data(10, clamp_cap), clamp_offs, None),
+        ("every segment empty", data(10, 1024), empty_offs, None),
+        ("segment_sum_rows at row0 6", long_data, long_offs, 6),
+        ("1 input row", main16[:1], offs_main, None),
+        ("16 input rows", main16, offs_main, None),
+        ("segment_sum_rows, 1 row at row0 15", main16[:1], offs_main, 15),
+        ("segment_sum_rows, 16 rows", main16, offs_main, 0)]
+    out = {}
+    for name, x, o, row0 in cases:
+        if row0 is None:
+            got = [segsum_cuda.segment_sum(x, o) for _ in range(2)]
+            want = segsum_cuda.segment_sum_plain(list(x), o)
+        else:
+            got = [segsum_cuda.segment_sum_rows(list(x), o, row0=row0)
+                   for _ in range(2)]
+            want = segsum_cuda.segment_sum_plain(list(x), o,
+                                                 segsum_cuda.OUT_ROWS, row0)
+        check(torch.equal(got[0], got[1]),
+              f"segment sums differ between two launches: {name}")
+        rel = max(row_rel_norms(got[0], want))
+        check(rel <= SUM_RTOL, f"segment sums differ from their plain "
+              f"version: {name} (row relative norm {rel})")
+        out[name] = rel
+    check(not bool(segsum_cuda.segment_sum(data(10, 1024), empty_offs).any()),
+          "empty segments do not sum to 0")
+    return out
 
 
 def training(args, cfg, scene, state, statics, dev):
@@ -532,6 +659,22 @@ def training(args, cfg, scene, state, statics, dev):
           f"(row relative norms {rows_rel})")
     check(torch.equal(r_k[r0:r1], s_k),
           "segment_sum_rows differs from segment_sum on the same rows")
+    check(torch.equal(segsum_cuda.segment_sum(*sa), s_k)
+          and torch.equal(segsum_cuda.segment_sum_rows(rows, offs, row0=r0),
+                          r_k),
+          "a segment sum differs between two launches on its main-path "
+          "input")
+    seg_len = offs[1:].long() - offs[:-1].long()
+    block0 = torch.arange(0, seg_len.numel(), 32, device=dev)
+    segment_lengths = {
+        "gaussians": int(seg_len.numel()),
+        "non_empty": int((seg_len > 0).sum()),
+        "largest": int(seg_len.max()),
+        "entries": int(offs[-1]),
+        "blocks_of_32": int(block0.numel()),
+        "non_empty_blocks_of_32": int((offs[torch.clamp(
+            block0 + 32, max=seg_len.numel())] > offs[block0]).sum())}
+    seg_edges = segsum_edge_cases(offs, d_rows.shape[1], dev, args.seed)
     pa = captured["splat_grad"][0]
     z_k = cubemap_cuda.splat_grad(*pa)
     z_p = cubemap_cuda.splat_grad_plain(*pa)
@@ -551,6 +694,9 @@ def training(args, cfg, scene, state, statics, dev):
           splat_grad_row_rel_norms=g3(splat_rel),
           splat_grad_row_norms=g3(z_p.flatten(1).norm(dim=1).tolist()),
           splat_grad_max_abs_err=splat_err,
+          segment_lengths=segment_lengths,
+          segment_edge_cases_row_rel_norm=seg_edges,
+          segment_sums_bit_equal_across_launches=True,
           sum_tolerance=f"row relative norm {SUM_RTOL}",
           capacity=int(ba[0].shape[1]), gaussians=int(offs.shape[0]) - 1,
           texture=int(pa[-1]), pixels=int(pa[0].shape[0]))
@@ -628,19 +774,9 @@ def training(args, cfg, scene, state, statics, dev):
              lambda: torch.zeros((6 * res * res, 3), device=dev)
              .index_add_(0, cells4, vals4),
              splat_bytes, splat_ops, splat_err)]:
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * nops / FP32_OPS_PER_S
-        out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_per_step": launches[name] / len(steps),
-            "max_abs_err": err,
-            "ms": cuda_ms(fn, 20),
-            "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None if lib is None else cuda_ms(lib, 20),
-        })
+        out.append(timed(name, source, replaces, launches[name], err, fn,
+                         plain, lib, nbytes, nops))
+        out[-1]["launches_per_step"] = launches[name] / len(steps)
     phase("train_times", t0, live_entries=live_entries, live_chunks=live_chunks,
           blend_pairs=blend_pairs, bwd_ops=bwd_ops, bwd_bytes=bwd_bytes,
           segment_entries=entries, segment_bytes=seg_bytes,
@@ -905,11 +1041,11 @@ def main() -> int:
                   f"version (max abs err {err})")
     scan_counts = captured["scan"][0][0]
     got = scan_utils.cumsum(scan_counts)
-    want = scan_cuda.scan_rows_plain(scan_counts[None], "sum")[0]
-    check(got.dtype == torch.int32 and torch.equal(got, want),
+    want_counts = scan_cuda.scan_rows_plain(scan_counts[None], "sum")[0]
+    check(got.dtype == torch.int32 and torch.equal(got, want_counts),
           "scan cumsum differs from its plain version on the main path's "
           "tile counts")
-    scan_err = float((got.long() - want.long()).abs().max())
+    scan_err = float((got.long() - want_counts.long()).abs().max())
     scan_cases[f"main path ({scan_counts.numel()},) i32 sum"] = scan_err
     n_g = int(ea[1].shape[0]) - 1
     mono_k = binning.fill_monotone(
@@ -922,6 +1058,48 @@ def main() -> int:
           "version on a capacity-long int32 input")
     scan_cases[f"fill_monotone ({ea[3]},) i32 max"] = float(
         (mono_k.long() - mono_p.long()).abs().max())
+    # the look-back's edges: int32 lengths around a tile (a row's masked
+    # tail, its first look-back) and rows that each start a new walk
+    tile = scan_cuda.TILE
+    others = []
+    for shape in [(1,), (31,), (tile - 1,), (tile,), (tile + 1,),
+                  (3, 20_000)]:
+        x = torch.randint(-1000, 1000, shape, generator=gs, device=dev,
+                          dtype=torch.int32)
+        want = {op: scan_cuda.scan_rows_plain(x.view(-1, shape[-1]), op)
+                .view(shape) for op in ("sum", "max", "min")}
+        others.append((x, want["sum"]))
+        for op in ("sum", "max", "min"):
+            got = (scan_cuda.scan_rows(x, op) if x.dim() == 2
+                   else scan_cuda.scan1d(x, op))
+            check(torch.equal(got, want[op]), f"scan {op} of int32 "
+                  f"{shape} differs from its plain version")
+        scan_cases[f"{shape} i32 sum, max, min"] = 0.0
+    # a sum past 2^31, held against its plain version and the int64 sum
+    # wrapped to 32 bits
+    big = torch.randint(2 ** 28, 2 ** 30, (100_003,), generator=gs,
+                        device=dev, dtype=torch.int32)
+    wrapped = ((torch.cumsum(big.long(), 0) + 2 ** 31) % 2 ** 32
+               - 2 ** 31).int()
+    got = scan_utils.cumsum(big)
+    check(torch.equal(got, scan_cuda.scan_rows_plain(big[None], "sum")[0])
+          and torch.equal(got, wrapped),
+          "scan sum past 2^31 does not wrap like its plain version")
+    scan_cases["(100003,) i32 sum past 2^31"] = 0.0
+    others.append((big, wrapped))
+    # the main path's counts 200 times back to back, another length
+    # between any two: a stale status word or a wrong counter base would
+    # give a wrong prefix
+    for i in range(200):
+        check(torch.equal(scan_utils.cumsum(scan_counts), want_counts),
+              f"scan of the main path's counts differs at repeat {i}")
+        x, want = others[i % len(others)]
+        got = (scan_cuda.scan_rows(x, "sum") if x.dim() == 2
+               else scan_utils.cumsum(x))
+        check(torch.equal(got, want), f"scan sum of {tuple(x.shape)} "
+              f"differs from its plain version at repeat {i}")
+    scan_cases[f"main path ({scan_counts.numel()},) i32 sum x 200, "
+               "interleaved"] = 0.0
     phase("kernels", t0, expand_bit_exact=expand_equal,
           expand_max_abs_err=expand_err,
           gaussians=int(ea[1].shape[0]) - 1, capacity=ea[3],
@@ -1027,40 +1205,21 @@ def main() -> int:
              lambda: rasterize_cuda.rasterize_fwd(*ra),
              lambda: rasterize_cuda.rasterize_fwd_plain(*ra),
              raster_bytes, raster_ops, raster_err)]:
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * nops / FP32_OPS_PER_S
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches[len(kernels)],
-            "launches_per_frame": launches[len(kernels)] / n_frames,
-            "max_abs_err": err,
-            "ms": cuda_ms(fn, 20),
-            "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        })
+        kernels.append(timed(name, source, replaces, launches[len(kernels)],
+                             err, fn, plain, None, nbytes, nops))
     # the scan at the main path's shape: one int32 read and one int32
     # write per element, one add each
     n_scan = scan_counts.numel()
     scan_bytes = 8 * n_scan
-    kernels.append({
-        "name": "scan", "route": "cuda",
-        "source": "bilateral_driving_tpu_torch/csrc/scan.cu",
-        "replaces": "bilateral_driving_tpu/ops/scan_pallas.py:74",
-        "launches": launches[2],
-        "launches_per_frame": launches[2] / n_frames,
-        "max_abs_err": scan_err,
-        "ms": cuda_ms(lambda: scan_utils.cumsum(scan_counts), 20),
-        "plain_ms": cuda_ms(lambda: scan_cuda.scan_rows_plain(
-            scan_counts[None], "sum"), 20),
-        "bound_ms": max(1e3 * scan_bytes / HBM_BYTES_PER_S,
-                        1e3 * n_scan / FP32_OPS_PER_S),
-        "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: torch.cumsum(
-            scan_counts, 0, dtype=torch.int32), 20),
-    })
+    kernels.append(timed(
+        "scan", "bilateral_driving_tpu_torch/csrc/scan.cu",
+        "bilateral_driving_tpu/ops/scan_pallas.py:74", launches[2], scan_err,
+        lambda: scan_utils.cumsum(scan_counts),
+        lambda: scan_cuda.scan_rows_plain(scan_counts[None], "sum"),
+        lambda: torch.cumsum(scan_counts, 0, dtype=torch.int32),
+        scan_bytes, n_scan, plain_reps=20))
+    for k in kernels:
+        k["launches_per_frame"] = k["launches"] / n_frames
     phase("times", t0, ms_per_frame_median=round(
         1e3 * sorted(frame_s)[len(frame_s) // 2], 2),
           used_gaussians=used_gaussians, expand_bytes=expand_bytes,

@@ -102,21 +102,36 @@ def test_compositing_backward_matches_pallas_kernel(seed):
     assert np.abs(got).max() > 0
 
 
-def _segments(seed, n, cap):
+def _segments(seed, n, cap, kind="mixed"):
     """Offsets with empty, short and a few long segments, clamped to cap
-    like an overflowing frame's."""
+    like an overflowing frame's. "long": one Gaussian owns most of cap;
+    "clamped": a segment crosses cap and every later one is empty there."""
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, 4, n)
     counts[rng.random(n) < 0.3] = 0
-    counts[rng.integers(0, n, 3)] = rng.integers(100, 400, 3)
+    if kind == "long":
+        counts[n // 3] = cap - int(counts.sum()) - 17
+    else:
+        counts[rng.integers(0, n, 3)] = rng.integers(100, 400, 3)
+    if kind == "clamped":
+        counts[n // 2] = cap
     offsets = np.minimum(np.concatenate([[0], np.cumsum(counts)]), cap)
     return offsets.astype(np.int32)
 
 
-@pytest.mark.parametrize("n,cap,row0", [(300, 2048, 4), (700, 1024, 6)])
-def test_segment_sums_match_pallas_kernels(n, cap, row0):
+@pytest.mark.parametrize("n,cap,row0,kind", [
+    pytest.param(300, 2048, 4, "mixed", id="300-2048-4"),
+    pytest.param(700, 1024, 6, "mixed", id="700-1024-6"),
+    pytest.param(100, 2048, 4, "long", id="one-long-segment"),
+    pytest.param(33, 1024, 5, "mixed", id="count-not-multiple-of-32"),
+    pytest.param(200, 1024, 6, "clamped", id="clamped-offsets")])
+def test_segment_sums_match_pallas_kernels(n, cap, row0, kind):
     assert cap % 1024 == 0
-    offsets = _segments(n, n, cap)
+    offsets = _segments(n, n, cap, kind)
+    if kind == "long":
+        assert np.diff(offsets).max() > cap // 2
+    if kind == "clamped":
+        assert offsets[n // 2 + 1] == cap > offsets[n // 2]
     rng = np.random.default_rng(n)
     data = rng.normal(size=(16, cap)).astype(np.float32)
     jo = jnp.asarray(offsets)
@@ -289,3 +304,23 @@ def test_backward_wrappers_raise_instead_of_falling_back():
                       segsum_cuda.segment_sum.launches,
                       segsum_cuda.segment_sum_rows.launches,
                       cubemap_cuda.splat_grad.launches)
+
+
+@pytest.mark.parametrize("form,n_rows,row0", [
+    ("stacked", 1, 0), ("stacked", 16, 0), ("split", 1, 15),
+    ("split", 16, 0), ("split", 10, 6)])
+def test_segment_sum_argument_forms_raise_without_cuda(form, n_rows, row0):
+    """The stacked input (one base pointer and a row stride) and the split
+    one (a pointer per row, landing at row0) raise on tensors off the CPU
+    when there is no card, and count no launch."""
+    data = torch.zeros((n_rows, 1024)).to("meta")
+    offsets = torch.from_numpy(_segments(0, 100, 1024)).to("meta")
+    before = (segsum_cuda.segment_sum.launches,
+              segsum_cuda.segment_sum_rows.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if form == "stacked":
+            segsum_cuda.segment_sum(data, offsets)
+        else:
+            segsum_cuda.segment_sum_rows(list(data), offsets, row0=row0)
+    assert before == (segsum_cuda.segment_sum.launches,
+                      segsum_cuda.segment_sum_rows.launches)

@@ -51,6 +51,18 @@ def test_scan1d_matches_pallas_kernel(op):
         scan_cuda.scan1d(torch.from_numpy(x), op).numpy(), want)
 
 
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("length", [1, scan_cuda.TILE - 1, scan_cuda.TILE,
+                                    scan_cuda.TILE + 1])
+def test_scan1d_edge_lengths_match_pallas_kernel(length, op):
+    """Lengths around the CUDA kernel's tile, where a row's tail is masked
+    and its second tile is the first to look back."""
+    x = _data(10, np.int32, (length,))
+    want = np.asarray(scan_pallas.scan1d(jnp.asarray(x), op, interpret=True))
+    np.testing.assert_array_equal(
+        scan_cuda.scan1d(torch.from_numpy(x), op).numpy(), want)
+
+
 def test_scan_utils_match_jax_scan_utils_on_int32():
     """Bit-equal on int32, including sums that wrap past 2^31 like the
     binning offsets of an overflowing frame would."""
@@ -78,4 +90,23 @@ def test_scan_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError):
         scan_cuda.scan_rows(torch.zeros((2, 8)), "prod")
     scan_utils.cummax(torch.zeros(8, dtype=torch.int32))
+    assert scan_cuda.scan_rows.launches == before
+
+
+@pytest.mark.parametrize("form", ["rows past the old grid limit", "1-D",
+                                  "float32 rows", "one element"])
+def test_scan_argument_forms_raise_without_cuda(form):
+    """Every form the kernel takes raises on a tensor off the CPU when there
+    is no card, and counts no launch."""
+    x = {"rows past the old grid limit": torch.zeros((70_000, 3),
+                                                     dtype=torch.int32),
+         "1-D": torch.zeros(5 * scan_cuda.TILE, dtype=torch.int32),
+         "float32 rows": torch.zeros((3, 20_000)),
+         "one element": torch.zeros(1, dtype=torch.int32)}[form].to("meta")
+    before = scan_cuda.scan_rows.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if x.dim() == 2:
+            scan_cuda.scan_rows(x, "max")
+        else:
+            scan_cuda.scan1d(x, "sum")
     assert scan_cuda.scan_rows.launches == before
