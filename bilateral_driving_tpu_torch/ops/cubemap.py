@@ -90,9 +90,10 @@ class _SampleSplat(torch.autograd.Function):
     def backward(ctx, gout):
         (dirs,) = ctx.saved_tensors
         res = ctx.res
-        dz = cubemap_cuda.splat_grad(*corner_data(dirs, res),
-                                     gout.reshape(-1, 3).contiguous(), res)
-        return dz.reshape(6, 3, res, res).permute(0, 2, 3, 1), None
+        # (6, R, R, 3) contiguous: base's own layout and strides
+        return cubemap_cuda.splat_grad(*corner_data(dirs, res),
+                                       gout.reshape(-1, 3).contiguous(),
+                                       res), None
 
 
 def sample_splat(base: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ bilateral_driving_tpu/ops/cubemap.py.
 `splat_grad` launches the CUDA kernel `csrc/cubemap_splat.cu` on CUDA
 tensors and runs `splat_grad_plain` (the JAX package's scatter formula, as
 index_add_) on CPU tensors. ops/cubemap.py's `sample_splat` reaches it
-through this module.
+through this module. Both return the gradient in the texture's own layout,
+(6, R, R, 3) contiguous.
 """
 from __future__ import annotations
 
@@ -14,9 +15,23 @@ import torch
 
 from . import cuda_build
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+# the kernel's block counters, one set per (device, stream): zeroed once
+# here, left zero by every launch
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _stream_counters(device, stream: int) -> torch.Tensor:
+    words = _counters.get((device.index, stream))
+    if words is None:
+        words = torch.zeros(64, dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = words
+    return words
+
 
 def splat_grad_plain(face, u0, v0, fu, fv, g, res: int) -> torch.Tensor:
-    """(6 * 3, R, R) texture gradient of bilinear lookups with corner data
+    """(6, R, R, 3) texture gradient of bilinear lookups with corner data
     face/u0/v0 (P,) int32, fu/fv (P,) and pixel cotangents g (P, 3);
     pixels with face -1 add nothing."""
     keep = face >= 0
@@ -29,12 +44,11 @@ def splat_grad_plain(face, u0, v0, fu, fv, g, res: int) -> torch.Tensor:
     acc.index_add_(0, cell + 1, g * (1 - fv) * fu)
     acc.index_add_(0, cell + res, g * fv * (1 - fu))
     acc.index_add_(0, cell + res + 1, g * fv * fu)
-    return acc.reshape(6, res, res, 3).permute(0, 3, 1, 2).reshape(
-        6 * 3, res, res)
+    return acc.reshape(6, res, res, 3)
 
 
 def splat_grad(face, u0, v0, fu, fv, g, res: int) -> torch.Tensor:
-    """d(loss)/d(texture) as (6 * 3, R, R) (face-major, then channel)."""
+    """d(loss)/d(texture) as (6, R, R, 3), the texture's layout."""
     if g.device.type == "cpu":
         return splat_grad_plain(face, u0, v0, fu, fv, g, res)
     cuda_build.require_cuda(face, u0, v0, fu, fv, g)
@@ -47,15 +61,15 @@ def splat_grad(face, u0, v0, fu, fv, g, res: int) -> torch.Tensor:
     if (g.dtype != torch.float32 or g.shape != (npix, 3)
             or not g.is_contiguous()):
         raise ValueError("splat_grad: need contiguous (P, 3) f32 cotangents")
-    dz = torch.zeros((6 * 3, res, res), dtype=torch.float32, device=g.device)
-    fn = cuda_build.load("cubemap_splat").splat_grad_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, p, p]
-    fn.restype = ctypes.c_int
+    # filled by the launch itself; the caching allocator's blocks are
+    # aligned far past the 16 bytes its vector stores and adds need
+    dz = torch.empty((6, res, res, 3), dtype=torch.float32, device=g.device)
+    stream = cuda_build.current_stream(g.device)
+    fn = cuda_build.function("cubemap_splat", "splat_grad_launch", _ARGTYPES)
     cuda_build.check(fn(
         face.data_ptr(), u0.data_ptr(), v0.data_ptr(), fu.data_ptr(),
         fv.data_ptr(), g.data_ptr(), npix, res, dz.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream), "splat_grad")
+        _stream_counters(g.device, stream).data_ptr(), stream), "splat_grad")
     splat_grad.launches += 1
     return dz
 

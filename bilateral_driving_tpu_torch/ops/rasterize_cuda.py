@@ -196,14 +196,9 @@ def rasterize_bwd_plain(feats, starts, counts, n_live, ckpt_off, ckpt, gout,
     return dfeats
 
 
-def _launcher(name: str, nargs):
-    fn = getattr(cuda_build.load(name), f"{name}_launch")
-    fn.argtypes = nargs
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGTYPES = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+_BWD_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
 
 
 def _check_inputs(feats, starts, counts, n_tiles: int, what: str):
@@ -242,12 +237,12 @@ def rasterize_fwd(feats, starts, counts, width: int, height: int,
         ckpt = torch.empty((slots, PIX), dtype=torch.float32, device=dev)
         n_live = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
-    launch = _launcher("rasterize_fwd", [_P, _I, _P, _P, _I, _I, _P, _P, _P,
-                                         _P, _P])
+    launch = cuda_build.function("rasterize_fwd", "rasterize_fwd_launch",
+                                 _FWD_ARGTYPES)
     cuda_build.check(launch(
         feats.data_ptr(), cap, starts.data_ptr(), counts.data_ptr(), n_tiles,
         ntx, out.data_ptr(), ptr(ckpt_off), ptr(ckpt), ptr(n_live),
-        torch.cuda.current_stream(dev).cuda_stream), "rasterize_fwd")
+        cuda_build.current_stream(dev)), "rasterize_fwd")
     rasterize_fwd.launches += 1
     return (out, n_live, ckpt_off, ckpt) if residuals else out
 
@@ -279,14 +274,22 @@ def rasterize_bwd(feats, starts, counts, n_live, ckpt_off, ckpt, gout,
         raise ValueError("rasterize_bwd: need contiguous (slots, 1024) f32 "
                          "checkpoints")
     dev = feats.device
+    slots = ckpt.shape[0]
     dfeats = torch.zeros((NFEAT, cap), dtype=torch.float32, device=dev)
-    launch = _launcher("rasterize_bwd", [_P, _I, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _P, _P])
+    # the kernels' scratch, written before it is read: the live (tile,
+    # chunk) list with two tickets, then each live slot's chunk sum (f64)
+    # and carry (f32) per pixel
+    work = torch.empty(4 + 2 * slots, dtype=torch.int32, device=dev)
+    sums = torch.empty((slots, PIX), dtype=torch.float64, device=dev)
+    carry = torch.empty((slots, PIX), dtype=torch.float32, device=dev)
+    launch = cuda_build.function("rasterize_bwd", "rasterize_bwd_launch",
+                                 _BWD_ARGTYPES)
     cuda_build.check(launch(
         feats.data_ptr(), cap, starts.data_ptr(), counts.data_ptr(),
         n_live.data_ptr(), ckpt_off.data_ptr(), ckpt.data_ptr(),
-        gout.data_ptr(), n_tiles, ntx, dfeats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "rasterize_bwd")
+        gout.data_ptr(), n_tiles, ntx, work.data_ptr(), sums.data_ptr(),
+        carry.data_ptr(), dfeats.data_ptr(), cuda_build.current_stream(dev)),
+        "rasterize_bwd")
     rasterize_bwd.launches += 1
     return dfeats
 

@@ -50,13 +50,20 @@ Phases, each printed on its own line with its result and elapsed seconds:
             time, idle share of the median ordinary step, device
             operations, top items
   train_kernels  each training kernel against its plain version on inputs
-            captured from the train phase; segment_sum_rows, which the
-            main path does not call, on the main path's segment_sum rows;
-            the segment lengths there; the segment sums on edge cases (one
-            Gaussian owning 100,000 entries, a Gaussian count that is not
-            a multiple of 32, offsets clamped at cap, every segment empty,
-            row0 > 0, 1 and 16 input rows), each launched twice and
-            bit-equal
+            captured from the train phase, the compositing backward also
+            launched twice (bit-equal) with the spread of live chunks over
+            tiles, and on edge cases (a tile with no live chunk, a range
+            that starts mid-chunk, a chunk shared by two tiles, a tile of
+            over 200 live chunks, a tile whose every pair the alpha gate
+            drops), each launched twice; the splat per (face, channel) row
+            with its share of zero cotangents, and the strides of the sky
+            texture's gradient against the texture's own; segment_sum_rows,
+            which the main path does not call, on the main path's
+            segment_sum rows; the segment lengths there; the segment sums
+            on edge cases (one Gaussian owning 100,000 entries, a Gaussian
+            count that is not a multiple of 32, offsets clamped at cap,
+            every segment empty, row0 > 0, 1 and 16 input rows), each
+            launched twice and bit-equal
   train_times    CUDA-event times of each training kernel, its plain
             version, one library call that computes the same function, and
             its bound; the device time alone of each kernel and library
@@ -343,6 +350,101 @@ def restore(saved, generator):
     return trainer.TrainerState(**copy.deepcopy(saved), generator=generator)
 
 
+def tile_live_entries(starts, counts, n_live):
+    """(n_tiles,) int64 entries of each tile's range inside its live
+    chunks."""
+    import torch
+
+    start = starts.long()
+    live_end = torch.minimum(
+        start + counts.long(),
+        (torch.div(start, 128, rounding_mode="floor") + n_live.long()) * 128)
+    return torch.clamp(live_end - start, min=0)
+
+
+def bwd_edge_cases(dev, seed: int) -> dict:
+    """The compositing backward on tiles built to reach its edges, from the
+    forward kernel's residuals: a tile with no entries (0 live chunks), a
+    range that starts mid-chunk and shares its last chunk with the next
+    tile, a tile of 204 live chunks (its Gaussians leave a strip of pixels
+    uncovered, so it never stops), a tile whose every pair the 1/255 gate
+    drops and an opaque tile that stops early. Launched twice (bit-equal)
+    and held against its plain version per output row; returns what it
+    measured."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import rasterize_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    # (count, mean x range, scale range, opacity range) per tile of a
+    # 160 x 32 image; the ranges follow one another from entry 64
+    tiles = [(0, None, None, None),
+             (300, (-4.0, 36.0), (1.5, 8.0), (0.05, 0.95)),
+             (26_000, (0.0, 12.0), (1.5, 3.0), (0.3, 0.95)),
+             (500, (-4.0, 36.0), (1.5, 8.0), (0.001, 0.003)),
+             (2000, (-4.0, 36.0), (4.5, 24.0), (0.9, 0.999))]
+    width, height = 32 * len(tiles), 32
+    starts, pos = [], 64
+    for n, *_ in tiles:
+        starts.append(pos)
+        pos += n
+    cap = -(-pos // 128) * 128 + 128
+    feats = torch.zeros((10, cap), device=dev)
+    feats[5] = -30.0
+
+    def uniform(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    for t, (n, mx, sc_r, op_r) in enumerate(tiles):
+        if n == 0:
+            continue
+        s = slice(starts[t], starts[t] + n)
+        sc = uniform(*sc_r, n)
+        feats[0, s] = 32 * t + uniform(*mx, n)
+        feats[1, s] = uniform(-4.0, 36.0, n) if t != 2 else uniform(0, 32, n)
+        feats[2, s] = 1 / sc ** 2
+        feats[3, s] = uniform(-0.3, 0.3, n) / sc ** 2
+        feats[4, s] = 1 / sc ** 2
+        feats[5, s] = torch.log(uniform(*op_r, n))
+        feats[6:9, s] = torch.rand((3, n), generator=gen, device=dev)
+        feats[9, s] = torch.sort(uniform(1.0, 50.0, n)).values
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    cn = torch.tensor([n for n, *_ in tiles], dtype=torch.int32, device=dev)
+    gout = torch.randn((len(tiles), 5, 1024), generator=gen, device=dev)
+    _, n_live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
+        feats, st, cn, width, height, residuals=True)
+    check(torch.equal(n_live, rasterize_cuda.rasterize_fwd_plain(
+        feats, st, cn, width, height).n_live),
+          "edge cases: the forward kernel stops tiles elsewhere than its "
+          "plain version")
+    nch = rasterize_cuda._chunk_counts(st, cn)[3]
+    nl = n_live.tolist()
+    check(nl[0] == 0 and nl[2] >= 200 and nl[3] == int(nch[3])
+          and nl[4] < int(nch[4]) and starts[1] % 128
+          and (starts[2] - 1) // 128 == starts[2] // 128,
+          f"edge cases do not reach their edges: n_live {nl}, chunks "
+          f"{nch.tolist()}")
+    args = (feats, st, cn, n_live, ckpt_off, ckpt, gout, width, height)
+    got = [rasterize_cuda.rasterize_bwd(*args) for _ in range(2)]
+    want = rasterize_cuda.rasterize_bwd_plain(*args)
+    check(torch.equal(got[0], got[1]),
+          "compositing backward differs between two launches: edge cases")
+    rels = row_rel_norms(got[0], want)
+    check(max(rels) <= BWD_RTOL, f"compositing backward differs from its "
+          f"plain version on the edge cases (row relative norms {rels})")
+    dropped = slice(starts[3], starts[3] + tiles[3][0])
+    live = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for s0, n in zip(starts, tile_live_entries(st, cn, n_live).tolist()):
+        live[s0:s0 + n] = True
+    check(not bool(got[0][:, dropped].any())
+          and not bool(got[0][:, ~live].any()),
+          "compositing backward wrote a gradient where the gate dropped "
+          "every pair or past the live chunks")
+    return {"n_live": nl, "row_rel_norms": [float(f"{x:.3g}") for x in rels],
+            "max_abs_err": float((got[0] - want).abs().max()),
+            "bit_equal_across_launches": True}
+
+
 def segsum_edge_cases(offs_main, cap_main: int, dev, seed: int) -> dict:
     """The segment sums on edge cases, each launched twice (bit-equal) and
     held against its plain version per output row; returns each case's
@@ -508,6 +610,13 @@ def training(args, cfg, scene, state, statics, dev):
                                                    batch)
     torch.cuda.synchronize()
     check(counts() == mid, "a kernel launched in the plain-version step")
+    # the texture's gradient, as the step hands it to Adam, in the
+    # texture's own layout
+    base = tstate.params["Sky"]["base"]
+    base_strides = {"param": list(base.stride()),
+                    "grad": list(g_k["Sky/base"].stride())}
+    check(base_strides["grad"] == base_strides["param"],
+          f"the sky texture's gradient has other strides: {base_strides}")
     g_k["means2d"], g_p["means2d"] = gd_k, gd_p
     rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
     worst = max(rels, key=rels.get)
@@ -628,16 +737,30 @@ def training(args, cfg, scene, state, statics, dev):
     bwd_err = float((d_k - d_p).abs().max())
     check(bwd_rel <= BWD_RTOL, f"compositing backward kernel differs from "
           f"its plain version (row relative norm {bwd_rel})")
+    check(torch.equal(rasterize_cuda.rasterize_bwd(*ba), d_k),
+          "compositing backward differs between two launches on its "
+          "main-path input")
     # entries outside every tile's live chunks keep exactly 0
-    fcs = torch.div(ba[1].long(), 128, rounding_mode="floor")
-    entry = torch.arange(d_k.shape[1], device=dev)
+    tile_live = tile_live_entries(ba[1], ba[2], ba[3])
     live_mask = torch.zeros(d_k.shape[1], dtype=torch.bool, device=dev)
-    for lo, hi in zip((fcs * 128).tolist(),
-                      ((fcs + ba[3].long()) * 128).tolist()):
-        live_mask[lo:hi] = True
-    live_mask &= entry < int((ba[1].long() + ba[2].long()).max())
+    for lo, n in zip(ba[1].tolist(), tile_live.tolist()):
+        live_mask[lo:lo + n] = True
     check(not bool(d_k[:, ~live_mask].any()),
           "backward kernel wrote past a tile's live chunks")
+    # the live chunks per tile: a walk of each tile's chunks in turn would
+    # wait on the heaviest tile
+    nl_main = ba[3].long()
+    heavy = int(torch.argmax(tile_live))
+    live_chunk_spread = {
+        "tiles": int(nl_main.numel()), "live_chunks": int(nl_main.sum()),
+        "n_live_max": int(nl_main.max()),
+        "n_live_mean": round(float(nl_main.float().mean()), 3),
+        "tiles_with_no_live_chunk": int((nl_main == 0).sum()),
+        "heaviest_tile": heavy,
+        "heaviest_tile_live_entries": int(tile_live[heavy]),
+        "heaviest_tile_n_live": int(nl_main[heavy]),
+        "live_entries": int(tile_live.sum())}
+    bwd_edges = bwd_edge_cases(dev, args.seed)
 
     sa = captured["segment_sum"][0]
     d_rows, offs = sa
@@ -678,10 +801,17 @@ def training(args, cfg, scene, state, statics, dev):
     pa = captured["splat_grad"][0]
     z_k = cubemap_cuda.splat_grad(*pa)
     z_p = cubemap_cuda.splat_grad_plain(*pa)
-    splat_rel = row_rel_norms(z_k, z_p)
+    check(z_k.shape == z_p.shape and z_k.is_contiguous(),
+          f"splat kernel output {tuple(z_k.shape)} is not the texture's "
+          "layout")
+    # per (face, channel) row
+    splat_rows = lambda z: z.permute(0, 3, 1, 2).reshape(18, -1)
+    splat_rel = row_rel_norms(splat_rows(z_k), splat_rows(z_p))
     splat_err = float((z_k - z_p).abs().max())
     check(max(splat_rel) <= SUM_RTOL, f"splat kernel differs from its plain "
           f"version (row relative norms {splat_rel})")
+    kept = pa[0] >= 0
+    splat_zero_share = float((pa[5][kept] == 0).all(1).float().mean())
     g3 = lambda xs: [float(f"{x:.3g}") for x in xs]
     phase("train_kernels", t0, rasterize_bwd_row_rel_norm=bwd_rel,
           rasterize_bwd_max_abs_err=bwd_err,
@@ -691,9 +821,14 @@ def training(args, cfg, scene, state, statics, dev):
           segment_sum_max_abs_err=seg_err,
           segment_sum_rows_row_rel_norms=g3(rows_rel),
           segment_sum_rows_max_abs_err=rows_err,
+          rasterize_bwd_bit_equal_across_launches=True,
+          live_chunk_spread=live_chunk_spread,
+          rasterize_bwd_edge_cases=bwd_edges,
           splat_grad_row_rel_norms=g3(splat_rel),
-          splat_grad_row_norms=g3(z_p.flatten(1).norm(dim=1).tolist()),
+          splat_grad_row_norms=g3(splat_rows(z_p).norm(dim=1).tolist()),
           splat_grad_max_abs_err=splat_err,
+          splat_zero_cotangent_share=splat_zero_share,
+          sky_base_strides=base_strides,
           segment_lengths=segment_lengths,
           segment_edge_cases_row_rel_norm=seg_edges,
           segment_sums_bit_equal_across_launches=True,
@@ -708,12 +843,7 @@ def training(args, cfg, scene, state, statics, dev):
                                             ba[7], ba[8])
     check(torch.equal(fp.n_live, n_live),
           "plain forward stops tiles elsewhere than the kernel")
-    start = starts.long()
-    end = start + counts_t.long()
-    live_end = torch.minimum(
-        end, (torch.div(start, 128, rounding_mode="floor")
-              + n_live.long()) * 128)
-    live_entries = int(torch.clamp(live_end - start, min=0).sum())
+    live_entries = int(tile_live.sum())
     live_chunks = int(n_live.sum())
     n_tiles = int(starts.numel())
     blend_pairs = int(fp.n_blend)
@@ -741,7 +871,11 @@ def training(args, cfg, scene, state, statics, dev):
                        gk * wv * (1 - wu), gk * wv * wu])
     touched = int(torch.unique(cells4).numel())
     npix = int(keep.sum())
-    splat_bytes = npix * 32 + touched * 3 * 4
+    # the function returns the dense (6, R, R, 3) gradient: every texel is
+    # written, touched or not. Counting only the touched texels (printed
+    # beside it) undercounts that write
+    splat_bytes = npix * 32 + 6 * res * res * 3 * 4
+    splat_bytes_touched_only = npix * 32 + touched * 3 * 4
     splat_ops = npix * 4 * 3 * 3
 
     out = []
@@ -782,6 +916,7 @@ def training(args, cfg, scene, state, statics, dev):
           segment_entries=entries, segment_bytes=seg_bytes,
           segment_rows_bytes=seg_rows_bytes,
           splat_pixels=npix, splat_texels=touched, splat_bytes=splat_bytes,
+          splat_bytes_if_only_touched_texels_written=splat_bytes_touched_only,
           nvidia_smi=nvidia_smi())
 
     return out, launches["scan"] / len(steps)
@@ -1182,12 +1317,8 @@ def main() -> int:
     used_gaussians = int((offsets[1:] > offsets[:-1]).sum())
     expand_bytes = (used_gaussians * EXPAND_ROWS_READ * 4 + 4
                     + e_cap * (4 + 4 + 4 * expand_cuda.NFEAT))
-    feats_s, starts, counts = ra[0], ra[1], ra[2]
-    start = starts.long()
-    end = start + counts.long()
-    live_end = torch.minimum(
-        end, (torch.div(start, 128, rounding_mode="floor") + n_live) * 128)
-    live_entries = int(torch.clamp(live_end - start, min=0).sum())
+    starts = ra[1]
+    live_entries = int(tile_live_entries(starts, ra[2], n_live).sum())
     blend_pairs = int(n_blend)
     raster_ops = (live_entries * (ENTRY_OPS + rasterize_cuda.PIX * PAIR_OPS)
                   + blend_pairs * BLEND_OPS)

@@ -102,6 +102,100 @@ def test_compositing_backward_matches_pallas_kernel(seed):
     assert np.abs(got).max() > 0
 
 
+def _chunk_parallel_bwd(feats, starts, counts, n_live, ckpt_off, ckpt,
+                        gout):
+    """csrc/rasterize_bwd.cu's decomposition in PyTorch: the live (tile,
+    chunk) pairs listed tile by tile (its items pass); each pair's chunk
+    sum S of w G per pixel in float64 at slot ckpt_off[tile] + chunk (sums);
+    each slot's carry, the float32 sum of float32(S) over the tile's later
+    live chunks added last chunk first (carry); each pair's gradients from
+    its own S, carry and checkpoint alone (grads). Returns the gradients
+    and the pairs' (tile, chunk, slot)."""
+    tl = rasterize_cuda._tiling(starts, counts, WIDTH, HEIGHT)
+    nl = n_live.long()
+    tiles = torch.repeat_interleave(torch.arange(N_TILES), nl)
+    chunks = torch.arange(tiles.numel()) - (torch.cumsum(nl, 0) - nl)[tiles]
+    slots = ckpt_off.long()[tiles] + chunks
+    pairs = list(zip(tiles.tolist(), chunks.tolist(), slots.tolist()))
+
+    def sweep(t, c, slot):
+        gidx, f, inm, dx, dy, alpha = rasterize_cuda._chunk_alpha(
+            feats, tl, torch.tensor([t]), c)
+        t_excl, _ = rasterize_cuda._exclusive_transmittance(alpha)
+        trans = (t_excl * ckpt[slot])[0]                   # (CHUNK, PIX)
+        f = f[:, 0]                                        # (10, CHUNK, 1)
+        G = (torch.einsum("ck,cp->kp", f[6:10, :, 0], gout[t, :4])
+             + gout[t, 4])
+        w = alpha[0] * trans
+        return gidx[0], f, inm[0], dx[0], dy[0], alpha[0], trans, G, w
+
+    sums = {}
+    for t, c, slot in pairs:
+        *_, G, w = sweep(t, c, slot)
+        sums[slot] = (w * G).double().sum(0)
+    carry = {}
+    for t in range(N_TILES):
+        cr = torch.zeros(rasterize_cuda.PIX)
+        for c in range(int(nl[t]) - 1, -1, -1):
+            slot = int(ckpt_off[t]) + c
+            carry[slot] = cr
+            cr = cr + sums[slot].float()
+    dfeats = torch.zeros((10, feats.shape[1]))
+    for t, c, slot in pairs:
+        gidx, f, inm, dx, dy, alpha, trans, G, w = sweep(t, c, slot)
+        prefix = torch.cumsum((w * G).double(), 0)
+        suffix = (sums[slot] - prefix).float() + carry[slot]
+        one_m = torch.clamp(1.0 - alpha, min=1.0 - rasterize_cuda.MAX_ALPHA)
+        d_alpha = trans * G - suffix / one_m
+        gate = (alpha > 0.0) & (alpha < rasterize_cuda.MAX_ALPHA)
+        ds = torch.where(gate, -(alpha * d_alpha), torch.zeros(()))
+        a, b, cq = f[2], f[3], f[4]
+        d = torch.where(gate, torch.stack([
+            -(ds * (a * dx + b * dy)), -(ds * (cq * dy + b * dx)),
+            ds * (0.5 * dx * dx), ds * (dx * dy), ds * (0.5 * dy * dy), -ds,
+        ]), torch.zeros(())).sum(-1)
+        d = torch.cat([d, torch.einsum("cp,kp->ck", gout[t, :4], w)])
+        dfeats[:, gidx[inm]] = d[:, inm]
+    return dfeats, pairs
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chunk_parallel_backward_matches_the_serial_walk(seed):
+    """The backward kernel runs every live (tile, chunk) pair on its own,
+    the pairs tied only by their carries. That decomposition, in PyTorch,
+    against rasterize_bwd_plain's walk of each tile's chunks in reverse:
+    tiles 0 and 1 and tiles 4 and 5 share a chunk, tile 2 stops early,
+    tile 3 has no entries."""
+    feats, starts, counts, gout = _tile_inputs(seed)
+    tf, ts, tcn = (torch.from_numpy(x) for x in (feats, starts, counts))
+    tg = torch.from_numpy(gout)
+    _, live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
+        tf, ts, tcn, WIDTH, HEIGHT, residuals=True)
+    want = rasterize_cuda.rasterize_bwd_plain(tf, ts, tcn, live, ckpt_off,
+                                              ckpt, tg, WIDTH, HEIGHT)
+    got, pairs = _chunk_parallel_bwd(tf, ts, tcn, live, ckpt_off, ckpt, tg)
+
+    # one pair per live chunk, each in its own slot; the empty tile has none
+    # and the chunks shared by two tiles are two pairs each
+    assert live[3] == 0 and all(t != 3 for t, _, _ in pairs)
+    assert len(pairs) == int(live.sum())
+    assert len({slot for _, _, slot in pairs}) == len(pairs)
+    assert max(slot for _, _, slot in pairs) < ckpt.shape[0]
+    fc = [s // 128 for s in starts]
+    for t0, t1 in ((0, 1), (4, 5)):
+        shared = [(t, slot) for t, c, slot in pairs if fc[t] + c
+                  == (starts[t1]) // 128 and t in (t0, t1)]
+        assert len(shared) == 2 and shared[0][1] != shared[1][1]
+    # the same entries written, each row within 1e-6 of its norm (measured
+    # 1.0e-7 to 1.3e-7 over seeds 0-3): the two form the suffix sums in
+    # other orders (the walk takes float32 suffix sums from the chunk's
+    # end, the decomposition float64 S less its float64 prefix, as the
+    # kernel does)
+    np.testing.assert_array_equal((got != 0).numpy(), (want != 0).numpy())
+    for r in range(10):
+        assert _rel(got[r].numpy(), want[r].numpy()) < 1e-6, r
+
+
 def _segments(seed, n, cap, kind="mixed"):
     """Offsets with empty, short and a few long segments, clamped to cap
     like an overflowing frame's. "long": one Gaussian owns most of cap;
@@ -198,6 +292,37 @@ def test_splat_grad_matches_pallas_kernel(dirs_kind):
                                 fv[keep], torch.from_numpy(
                                     g.reshape(-1, 3)[1::2].copy()), res)
     torch.testing.assert_close(dz, dz_odd, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dirs_kind", ["smooth", "random"])
+def test_splat_gradient_has_the_texture_layout(dirs_kind):
+    """sample_splat's texture gradient comes in the texture's own shape and
+    strides ((6, R, R, 3) contiguous, what the optimizer is handed as
+    base.grad) and equals the JAX VJP, at R=128."""
+    res = 128
+    rng = np.random.default_rng(4)
+    dirs = (_smooth_dirs(48, 80) if dirs_kind == "smooth"
+            else rng.normal(size=(48, 80, 3)).astype(np.float32))
+    g = rng.normal(size=(48, 80, 3)).astype(np.float32)
+    base = rng.uniform(0, 1, (6, res, res, 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda b: jcubemap.sample_splat_vjp(
+        b, jnp.asarray(dirs), True), jnp.asarray(base))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+
+    tb = torch.from_numpy(base).requires_grad_(True)
+    cubemap.sample_splat(tb, torch.from_numpy(dirs)).backward(
+        torch.from_numpy(g))
+    assert tb.grad.shape == tb.shape and tb.grad.stride() == tb.stride()
+    assert tb.grad.is_contiguous()
+    # as in test_splat_grad_matches_pallas_kernel: bilinear weights round
+    # differently in the two frameworks by up to ~1e-5
+    np.testing.assert_allclose(tb.grad.numpy(), want,
+                               atol=2e-5 * np.abs(want).max())
+    face, u0, v0, fu, fv = cubemap.corner_data(torch.from_numpy(dirs), res)
+    dz = cubemap_cuda.splat_grad(face, u0, v0, fu, fv,
+                                 torch.from_numpy(g.reshape(-1, 3)), res)
+    assert dz.shape == (6, res, res, 3) and dz.is_contiguous()
+    torch.testing.assert_close(dz, tb.grad, rtol=0, atol=0)
 
 
 def _gaussians(seed, n=300):
