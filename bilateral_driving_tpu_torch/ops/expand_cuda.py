@@ -25,9 +25,18 @@ def expand_gather_plain(table_T, offsets, num_isects, cap: int, ntx: int,
                         n_tiles: int, n_orig: int):
     """Fill + monotone gather + key pack in plain PyTorch."""
     n = offsets.shape[0] - 1
+    g = binning.fill_monotone(
+        torch.arange(n, dtype=torch.int32, device=table_T.device),
+        offsets[:-1], cap)
+    return gather_entries(table_T, g, num_isects, ntx, n_tiles, n_orig)
+
+
+def gather_entries(table_T, g, num_isects, ntx: int, n_tiles: int,
+                   n_orig: int):
+    """(key, gid, feats) of entries 0..cap-1 from each entry's Gaussian
+    g (cap,) int32, the last one whose segment starts at or before it."""
+    cap = g.shape[0]
     dev = table_T.device
-    g = binning.fill_monotone(torch.arange(n, dtype=torch.int32, device=dev),
-                              offsets[:-1], cap)
     m_idx = torch.arange(cap, dtype=torch.int32, device=dev)
     gt = table_T[:, g.long()]                               # (16, cap)
     tile = binning.entry_tiles(
@@ -44,12 +53,8 @@ def expand_gather_plain(table_T, offsets, num_isects, cap: int, ntx: int,
     return key, gid, feats
 
 
-def _launcher():
-    fn = cuda_build.load("expand").expand_gather_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, p, p, i, i, i, i, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
 def expand_gather(table_T, offsets, num_isects, cap: int, ntx: int,
@@ -60,25 +65,29 @@ def expand_gather(table_T, offsets, num_isects, cap: int, ntx: int,
     if table_T.device.type == "cpu":
         return expand_gather_plain(table_T, offsets, num_isects, cap, ntx,
                                    n_tiles, n_orig)
-    ni = num_isects.reshape(1).to(torch.int32)
+    # the kernel reads num_isects on the device: no copy when it is int32
+    ni = num_isects if num_isects.dtype == torch.int32 else \
+        num_isects.to(torch.int32)
     cuda_build.require_cuda(table_T, offsets, ni)
     n = offsets.shape[0] - 1
     if (table_T.dtype != torch.float32 or offsets.dtype != torch.int32
             or table_T.dim() != 2 or table_T.shape[0] != TABLE_ROWS
             or table_T.shape[1] < n or not table_T.is_contiguous()
-            or not offsets.is_contiguous()):
+            or not offsets.is_contiguous() or ni.numel() != 1):
         raise ValueError("expand_gather: need a contiguous (16, >=N) f32 "
-                         "table and contiguous (N+1,) int32 offsets")
+                         "table, contiguous (N+1,) int32 offsets and one "
+                         "num_isects")
     dev = table_T.device
     key = torch.empty(cap, dtype=torch.int32, device=dev)
     gid = torch.empty(cap, dtype=torch.int32, device=dev)
     feats = torch.empty((NFEAT, cap), dtype=torch.float32, device=dev)
-    launch = _launcher()
+    launch = cuda_build.function("expand", "expand_gather_launch",
+                                 _ARGTYPES)
     cuda_build.check(launch(
         table_T.data_ptr(), n, table_T.shape[1], offsets.data_ptr(),
         ni.data_ptr(), cap, ntx, binning.tile_bits(n_tiles), n_orig,
         key.data_ptr(), gid.data_ptr(), feats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "expand_gather")
+        cuda_build.current_stream(dev)), "expand_gather")
     expand_gather.launches += 1
     return key, gid, feats
 

@@ -229,6 +229,8 @@ def rasterize_fwd(feats, starts, counts, width: int, height: int,
     ntx, nty = num_tiles(width, height)
     n_tiles = ntx * nty
     cap = _check_inputs(feats, starts, counts, n_tiles, "rasterize_fwd")
+    if feats.data_ptr() % 16:
+        raise ValueError("rasterize_fwd: need 16-byte aligned features")
     dev = feats.device
     out = torch.empty((n_tiles, N_OUT, PIX), dtype=torch.float32, device=dev)
     ckpt_off = ckpt = n_live = None

@@ -17,7 +17,16 @@ Phases, each printed on its own line with its result and elapsed seconds:
             R=1024, multi-scale bilateral grids over 240 images; the
             intersection capacity from probe_num_isects + autotune_capacity
   kernels   each render kernel against its plain version at the main
-            path's shapes; the prefix scan at tools/driver_smoke.py's
+            path's shapes: the expansion also on edge cases (a sparse
+            table, num_isects 0, equal to and above capacity, one
+            Gaussian over three 1,024-entry windows, N = 1), each launched
+            twice and bit-exact; the compositing forward's two instances
+            each launched twice (bit-equal), n_live equal to the plain
+            version's, with the render path's live chunks per tile; both
+            kernels' registers, shared memory and resident blocks per SM,
+            and the forward's cluster size and the clusters resident on
+            the card at once (tools/kernel_resources.py); the prefix
+            scan at tools/driver_smoke.py's
             shapes (float32 sum, max, min), on the main path's int32
             tile counts (cumsum) and a capacity-long int32 cummax, at
             int32 lengths around its tile and 3 rows x 20,000 (sum, max,
@@ -55,7 +64,10 @@ Phases, each printed on its own line with its result and elapsed seconds:
             tiles, and on edge cases (a tile with no live chunk, a range
             that starts mid-chunk, a chunk shared by two tiles, a tile of
             over 200 live chunks, a tile whose every pair the alpha gate
-            drops), each launched twice; the splat per (face, channel) row
+            drops, an opaque tile that stops early, a tile that stops on
+            its last chunk), each launched twice; the compositing forward
+            on the captured inputs and the edge cases as in kernels; the
+            splat per (face, channel) row
             with its share of zero cotangents, and the strides of the sky
             texture's gradient against the texture's own; segment_sum_rows,
             which the main path does not call, on the main path's
@@ -66,8 +78,9 @@ Phases, each printed on its own line with its result and elapsed seconds:
             launched twice and bit-equal
   train_times    CUDA-event times of each training kernel, its plain
             version, one library call that computes the same function, and
-            its bound; the device time alone of each kernel and library
-            call, from the profiler
+            its bound, and of the compositing forward with residuals; the
+            device time alone of each kernel and library call, from the
+            profiler
   cli       the port's CLI in subprocesses with PIL blocked:
             tools.train on tests/fixtures/proto_scene (its pixel pack) at
             the flagship widths for CLI_STEPS steps (two refines, a
@@ -152,13 +165,23 @@ FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
 # and writes key, gid and 10 features per entry.
 EXPAND_ROWS_READ = 15
 # Compositing, in f32 operations: per live entry and tile, the mean relative
-# to the tile origin and the halved a and c (4); per live (entry, pixel)
-# pair, dx, dy and sigma = dx (a/2 dx + b dy) + dy (c/2 dy) - logop (10),
-# then exp, clamp and the 1/255 gate (3); per pair past the gate, the
-# weight, 4 channels x (multiply, add) and the transmittance update (10).
-ENTRY_OPS, PAIR_OPS, BLEND_OPS = 4, 13, 10
-# Compositing backward, in f32 operations: per live (entry, pixel) pair the
-# forward's sigma, exp, clamp and gate once (13); per pair past the gate
+# to the tile origin and the halved a and c (4); per live entry and pixel
+# row of the tile, the least sigma along the row, where the row's pixels can
+# pass the gate at all: dy, b dy, c/2 dy^2 - logop, the vertex clamped to
+# the row and sigma there, the test (14); per (entry, pixel) pair in a row
+# the entry may reach, dx, dy and sigma = dx (a/2 dx + b dy) + dy (c/2 dy)
+# - logop (10), then exp, clamp and the 1/255 gate (3); per pair past the
+# gate, the weight, 4 channels x (multiply, add) and the transmittance
+# update (10). A pair in a row the entry cannot reach is one the gate drops:
+# no work of the function needs it.
+ENTRY_OPS, ROW_OPS, PAIR_OPS, BLEND_OPS = 4, 14, 13, 10
+# csrc/rasterize_fwd.cu's row test: the gate passes only where sigma <=
+# ln(255), and a row is left out only where its least sigma is above this
+# plus 1e-5 of the terms' size
+GATE_SIGMA = 5.5413 + 1e-3
+# Compositing backward, in f32 operations: the forward's row tests (14)
+# and, per (entry, pixel) pair in a row the entry may reach, the forward's
+# sigma, exp, clamp and gate once (13); per pair past the gate
 # G = colour . cotangent (9), the weight (1), the suffix bookkeeping (4),
 # d_alpha (4), d_sigma (1), the six geometry terms (11), the four colour
 # terms (4) and the ten sums over pixels (10).
@@ -233,6 +256,18 @@ def capturing(captured, name, fn):
     def wrapped(*a, **kw):
         captured.setdefault(name, (a, kw))
         return fn(*a, **kw)
+    return wrapped
+
+
+def capturing_residuals(captured):
+    """The compositing forward, recording under "rasterize_fwd" the
+    arguments of its first call with residuals (a training step's)."""
+    from bilateral_driving_tpu_torch.ops import rasterize_cuda
+
+    def wrapped(*a, **kw):
+        if kw.get("residuals"):
+            captured.setdefault("rasterize_fwd", (a, kw))
+        return rasterize_cuda.rasterize_fwd(*a, **kw)
     return wrapped
 
 
@@ -362,27 +397,27 @@ def tile_live_entries(starts, counts, n_live):
     return torch.clamp(live_end - start, min=0)
 
 
-def bwd_edge_cases(dev, seed: int) -> dict:
-    """The compositing backward on tiles built to reach its edges, from the
-    forward kernel's residuals: a tile with no entries (0 live chunks), a
-    range that starts mid-chunk and shares its last chunk with the next
-    tile, a tile of 204 live chunks (its Gaussians leave a strip of pixels
+def edge_tiles(dev, seed: int):
+    """Compositing inputs built to reach the kernels' edges, one tile each
+    of a 192 x 32 image: a tile with no entries (0 live chunks), a range
+    that starts mid-chunk and shares its last chunk with the next tile, a
+    tile of 204 live chunks (its Gaussians leave a strip of pixels
     uncovered, so it never stops), a tile whose every pair the 1/255 gate
-    drops and an opaque tile that stops early. Launched twice (bit-equal)
-    and held against its plain version per output row; returns what it
-    measured."""
+    drops, an opaque tile that stops after 2 of its 16 chunks, and a tile
+    whose stop falls on its last chunk (faint Gaussians the gate drops,
+    then opaque ones filling the last chunk). Returns (feats, starts,
+    counts, width, height, a cotangent for the backward)."""
     import torch
 
-    from bilateral_driving_tpu_torch.ops import rasterize_cuda
-
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    # (count, mean x range, scale range, opacity range) per tile of a
-    # 160 x 32 image; the ranges follow one another from entry 64
+    # (count, mean x range, scale range, opacity range) per tile; the
+    # ranges follow one another from entry 64
     tiles = [(0, None, None, None),
              (300, (-4.0, 36.0), (1.5, 8.0), (0.05, 0.95)),
              (26_000, (0.0, 12.0), (1.5, 3.0), (0.3, 0.95)),
              (500, (-4.0, 36.0), (1.5, 8.0), (0.001, 0.003)),
-             (2000, (-4.0, 36.0), (4.5, 24.0), (0.9, 0.999))]
+             (2000, (-4.0, 36.0), (4.5, 24.0), (0.9, 0.999)),
+             (400, (-4.0, 36.0), (24.0, 48.0), (0.001, 0.003))]
     width, height = 32 * len(tiles), 32
     starts, pos = [], 64
     for n, *_ in tiles:
@@ -408,10 +443,32 @@ def bwd_edge_cases(dev, seed: int) -> dict:
         feats[5, s] = torch.log(uniform(*op_r, n))
         feats[6:9, s] = torch.rand((3, n), generator=gen, device=dev)
         feats[9, s] = torch.sort(uniform(1.0, 50.0, n)).values
+    # the last tile's last chunk: opaque Gaussians near its centre
+    last = slice((starts[5] + tiles[5][0] - 1) // 128 * 128,
+                 starts[5] + tiles[5][0])
+    n_last = last.stop - last.start
+    feats[0, last] = 32 * 5 + uniform(8.0, 24.0, n_last)
+    feats[1, last] = uniform(8.0, 24.0, n_last)
+    feats[5, last] = torch.log(uniform(0.9, 0.999, n_last))
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     cn = torch.tensor([n for n, *_ in tiles], dtype=torch.int32, device=dev)
     gout = torch.randn((len(tiles), 5, 1024), generator=gen, device=dev)
-    _, n_live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
+    return feats, st, cn, width, height, gout
+
+
+def bwd_edge_cases(dev, seed: int) -> dict:
+    """The compositing backward on edge_tiles, from the forward kernel's
+    residuals. Launched twice (bit-equal) and held against its plain
+    version per output row; returns what it measured."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import rasterize_cuda
+
+    feats, st, cn, width, height, gout = edge_tiles(dev, seed)
+    starts = st.tolist()
+    tiles = cn.tolist()
+    cap = feats.shape[1]
+    img, n_live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
         feats, st, cn, width, height, residuals=True)
     check(torch.equal(n_live, rasterize_cuda.rasterize_fwd_plain(
         feats, st, cn, width, height).n_live),
@@ -419,9 +476,14 @@ def bwd_edge_cases(dev, seed: int) -> dict:
           "plain version")
     nch = rasterize_cuda._chunk_counts(st, cn)[3]
     nl = n_live.tolist()
+    # the last tile composites every chunk, went on after its next-to-last
+    # (its last checkpoint has a pixel above 1e-4) and ends below 1e-4
     check(nl[0] == 0 and nl[2] >= 200 and nl[3] == int(nch[3])
           and nl[4] < int(nch[4]) and starts[1] % 128
-          and (starts[2] - 1) // 128 == starts[2] // 128,
+          and (starts[2] - 1) // 128 == starts[2] // 128
+          and nl[5] == int(nch[5]) >= 2
+          and float(ckpt[int(ckpt_off[5]) + nl[5] - 1].max()) > 1e-4
+          and float((1.0 - img[5, 4]).max()) <= 1.1e-4,
           f"edge cases do not reach their edges: n_live {nl}, chunks "
           f"{nch.tolist()}")
     args = (feats, st, cn, n_live, ckpt_off, ckpt, gout, width, height)
@@ -432,7 +494,7 @@ def bwd_edge_cases(dev, seed: int) -> dict:
     rels = row_rel_norms(got[0], want)
     check(max(rels) <= BWD_RTOL, f"compositing backward differs from its "
           f"plain version on the edge cases (row relative norms {rels})")
-    dropped = slice(starts[3], starts[3] + tiles[3][0])
+    dropped = slice(starts[3], starts[3] + tiles[3])
     live = torch.zeros(cap, dtype=torch.bool, device=dev)
     for s0, n in zip(starts, tile_live_entries(st, cn, n_live).tolist()):
         live[s0:s0 + n] = True
@@ -443,6 +505,238 @@ def bwd_edge_cases(dev, seed: int) -> dict:
     return {"n_live": nl, "row_rel_norms": [float(f"{x:.3g}") for x in rels],
             "max_abs_err": float((got[0] - want).abs().max()),
             "bit_equal_across_launches": True}
+
+
+def live_slots(ckpt_off, n_live, slots: int):
+    """(slots,) bool: the checkpoint slots of the tiles' live chunks (the
+    only ones the forward writes for certain and the backward reads)."""
+    import torch
+
+    live = torch.zeros(slots, dtype=torch.bool, device=n_live.device)
+    for off, n in zip(ckpt_off.tolist(), n_live.tolist()):
+        live[off:off + n] = True
+    return live
+
+
+def forward_check(name: str, feats, starts, counts, width: int,
+                  height: int) -> dict:
+    """The compositing forward on one input, each of its two instances
+    launched twice: the image bit-equal across all four launches, n_live
+    and the live checkpoints across the two with residuals; against its
+    plain version n_live equal, the image and the live checkpoints within
+    RASTER_ATOL + RASTER_RTOL. Returns what it measured and the plain
+    version's result."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import rasterize_cuda
+
+    args = (feats, starts, counts, width, height)
+    imgs = [rasterize_cuda.rasterize_fwd(*args) for _ in range(2)]
+    res = [rasterize_cuda.rasterize_fwd(*args, residuals=True)
+           for _ in range(2)]
+    plain = rasterize_cuda.rasterize_fwd_plain(*args)
+    img, n_live, ckpt_off, ckpt = res[0]
+    live = live_slots(ckpt_off, n_live, ckpt.shape[0])
+    check(all(torch.equal(imgs[0], x) for x in (imgs[1], res[0][0],
+                                                 res[1][0]))
+          and torch.equal(n_live, res[1][1])
+          and torch.equal(ckpt[live], res[1][3][live]),
+          f"compositing forward differs between launches: {name}")
+    check(bool(torch.isfinite(img).all()),
+          f"compositing forward not finite: {name}")
+    check(torch.equal(n_live, plain.n_live), f"compositing forward stops "
+          f"tiles elsewhere than its plain version: {name}")
+    err = (img - plain.img).abs()
+    ckpt_err = (ckpt[live] - plain.ckpt[live]).abs()
+    check(bool(torch.all(err <= RASTER_ATOL + RASTER_RTOL * plain.img.abs()))
+          and bool(torch.all(ckpt_err <= RASTER_ATOL
+                             + RASTER_RTOL * plain.ckpt[live].abs())),
+          f"compositing forward differs from its plain version: {name} "
+          f"(max abs err {float(err.max())})")
+    return {"max_abs_err": float(err.max()),
+            "ckpt_max_abs_err": float(ckpt_err.max()) if live.any() else 0.0,
+            "live_chunks": int(n_live.sum()),
+            "bit_equal_across_launches_and_instances": True}, plain
+
+
+def live_chunk_spread(starts, counts, n_live) -> dict:
+    """The live chunks per tile: the heaviest tile's walk bounds a kernel
+    that walks each tile's chunks in turn."""
+    import torch
+
+    tile_live = tile_live_entries(starts, counts, n_live)
+    nl = n_live.long()
+    heavy = int(torch.argmax(tile_live))
+    return {"tiles": int(nl.numel()), "live_chunks": int(nl.sum()),
+            "n_live_max": int(nl.max()),
+            "n_live_mean": round(float(nl.float().mean()), 3),
+            "tiles_with_no_live_chunk": int((nl == 0).sum()),
+            "heaviest_tile": heavy,
+            "heaviest_tile_live_entries": int(tile_live[heavy]),
+            "heaviest_tile_n_live": int(nl[heavy]),
+            "live_entries": int(tile_live.sum())}
+
+
+def may_reach_rows(mx, my, ha, b, hc, lg):
+    """(n, 32) bool: csrc/rasterize_fwd.cu's may_reach of n entries, from
+    their prepared f32 values (mean relative to the tile origin, a/2, b,
+    c/2, logop), for each of the tile's 32 pixel rows: the least of
+    sigma's quadratic along the row, in float64, against the gate plus
+    1e-5 of the terms' size; an entry with a value that is not finite may
+    reach every row."""
+    import torch
+
+    mx, my, ha, b, hc, lg = (x.double()[:, None]
+                             for x in (mx, my, ha, b, hc, lg))
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ha)
+              & torch.isfinite(b) & torch.isfinite(hc) & torch.isfinite(lg))
+    py = torch.arange(32, dtype=torch.float64, device=mx.device) + 0.5
+    dy = py - my
+    lo, hi = 0.5 - mx, 31.5 - mx
+    qa, qb, qc = ha, b * dy, hc * dy * dy - lg
+    least = torch.minimum((qa * lo + qb) * lo + qc, (qa * hi + qb) * hi + qc)
+    x = -qb / (2.0 * qa)
+    inner = (qa > 0) & (x > lo) & (x < hi)
+    least = torch.where(inner, torch.minimum(least, (qa * x + qb) * x + qc),
+                        least)
+    d = torch.maximum(lo.abs(), hi.abs())
+    size = qa.abs() * d * d + hc.abs() * dy * dy + qb.abs() * d + lg.abs()
+    return ~finite | ~(least > GATE_SIGMA + 1e-5 * size)
+
+
+def compositing_work(feats, starts, counts, n_live, width: int,
+                     blend_pairs: int, entry_ops: int,
+                     blend_ops: int) -> dict:
+    """The operations compositing must do on these inputs, for its bound:
+    entry_ops per live entry (its tile's range inside the live chunks),
+    ROW_OPS per live entry and pixel row, PAIR_OPS per (entry, pixel) pair
+    in the rows may_reach_rows keeps, blend_ops per pair past the gate.
+    `live_pairs` counts every live (entry, pixel) pair, the count the
+    bound used before rows were left out."""
+    import torch
+
+    ntx = -(-width // 32)
+    live = tile_live_entries(starts, counts, n_live)
+    n = int(live.sum())
+    tile = torch.repeat_interleave(
+        torch.arange(live.numel(), device=live.device), live)
+    first = torch.repeat_interleave(starts.long() - (torch.cumsum(live, 0)
+                                                     - live), live)
+    idx = first + torch.arange(n, device=live.device)
+    rows = 0
+    for s in range(0, n, 1 << 16):
+        i, t = idx[s:s + (1 << 16)], tile[s:s + (1 << 16)]
+        f = feats[:6, i]
+        rows += int(may_reach_rows(
+            f[0] - (t % ntx * 32).float(),
+            f[1] - (torch.div(t, ntx, rounding_mode="floor") * 32).float(),
+            0.5 * f[2], f[3], 0.5 * f[4], f[5]).sum())
+    reach_pairs = rows * 32
+    return {"live_entries": n, "row_tests": n * 32,
+            "reach_pairs": reach_pairs, "live_pairs": n * 1024,
+            "blend_pairs": blend_pairs,
+            "ops": (n * entry_ops + n * 32 * ROW_OPS + reach_pairs * PAIR_OPS
+                    + blend_pairs * blend_ops)}
+
+
+def expand_table(gen, n: int, ntx: int, nty: int, live: int,
+                 max_span: int, cap: int, dev):
+    """A per-Gaussian table (16, n) as the pipeline builds it, its offsets
+    (n + 1,) clamped to cap and num_isects (int32, before truncation):
+    spans of up to max_span x max_span tiles of an ntx x nty grid, `live`
+    Gaussians at random with entries."""
+    import torch
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=dev)
+
+    tx0, ty0 = randint(ntx, n), randint(nty, n)
+    sw = torch.minimum(randint(max_span, n) + 1, ntx - tx0)
+    sh = torch.minimum(randint(max_span, n) + 1, nty - ty0)
+    counts = sw * sh
+    counts[torch.randperm(n, generator=gen, device=dev)[live:]] = 0
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    num_isects = offsets[-1].int()
+    offsets = torch.clamp(offsets, max=cap).int()
+    table = torch.randn((16, n), generator=gen, device=dev)
+    table[0], table[1], table[2] = tx0.float(), ty0.float(), sw.float()
+    table[3] = offsets[:-1].float()
+    table[13] = 0.5 + 49.5 * torch.rand(n, generator=gen, device=dev)
+    table[14] = torch.arange(n, device=dev).float()
+    table[15] = 0.0
+    return table, offsets, num_isects
+
+
+def expand_cases(ea, dev, seed: int) -> dict:
+    """The expansion on the main path's inputs and on edge cases, each
+    launched twice: bit-equal between the launches and to its plain
+    version. Returns each case's entries, capacity and largest difference
+    from the plain version (keys and gids as integers, features where
+    not both NaN)."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import expand_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    ntx, n_tiles = ea[4], ea[5]
+    nty = n_tiles // ntx
+    cases = {"main path": ea}
+    # Background capacity 512 with 300 live: the table that breaks the
+    # JAX Pallas expansion kernel (ROADMAP.md)
+    tab, off, ni = expand_table(gen, 512, ntx, nty, 300, 3, 1 << 20, dev)
+    cases["sparse, 512 slots, 300 live"] = (
+        tab, off, ni, -(-int(ni) // 128) * 128, ntx, n_tiles, 512)
+    tab, off, ni = expand_table(gen, 50_000, ntx, nty, 15_000, 4, 1 << 24,
+                                dev)
+    total = int(ni)
+    cases["num_isects 0"] = (tab, torch.zeros_like(off),
+                             torch.zeros_like(ni), 4096, ntx, n_tiles,
+                             50_000)
+    cases["num_isects equal to cap"] = (tab, off, ni, total, ntx, n_tiles,
+                                        50_000)
+    half = total // 2
+    cases["num_isects above cap"] = (tab, torch.clamp(off, max=half), ni,
+                                     half, ntx, n_tiles, 50_000)
+    # one Gaussian over 50 x 50 tiles (2,500 entries, three 1,024-entry
+    # windows) between others of one to four tiles
+    tab, off, ni = expand_table(gen, 3000, 64, 64, 1500, 2, 1 << 24, dev)
+    tab[0:3, 1500] = torch.tensor([5.0, 7.0, 50.0], device=dev)
+    counts = (off[1:] - off[:-1]).long()
+    counts[1500] = 50 * 50
+    off = torch.cat([off.new_zeros(1), torch.cumsum(counts, 0).int()])
+    tab[3] = off[:-1].float()
+    cases["one Gaussian over three windows"] = (
+        tab, off, off[-1].clone(), -(-int(off[-1]) // 128) * 128, 64,
+        64 * 64, 3000)
+    tab, off, ni = expand_table(gen, 1, ntx, nty, 1, 4, 1 << 20, dev)
+    cases["N = 1"] = (tab, off, ni, 128, ntx, n_tiles, 1)
+    out = {}
+    for name, args in cases.items():
+        got = [expand_cuda.expand_gather(*args) for _ in range(2)]
+        want = expand_cuda.expand_gather_plain(*args)
+        bits = lambda xs: [x.view(torch.int32) for x in xs]
+        check(all(torch.equal(a, b) for a, b in zip(bits(got[0]),
+                                                     bits(got[1]))),
+              f"expansion differs between two launches: {name}")
+        (k1, g1, f1), (k2, g2, f2) = got[0], want
+        err = max([float((k1.long() - k2.long()).abs().max()),
+                   float((g1.long() - g2.long()).abs().max()),
+                   float(torch.where(torch.isnan(f1) & torch.isnan(f2),
+                                     0.0, (f1 - f2).abs()).max())]
+                  if k1.numel() else [0.0])
+        check(all(torch.equal(a, b) for a, b in zip(bits(got[0]),
+                                                     bits(want))),
+              f"expansion differs from its plain version: {name} (max abs "
+              f"err {err})")
+        out[name] = {"gaussians": int(args[1].numel()) - 1,
+                     "num_isects": int(args[2]), "capacity": int(args[3]),
+                     "max_abs_err": err}
+    span = cases["one Gaussian over three windows"][1]
+    check(int(span[1501] - span[1500]) == 2500
+          and int(cases["num_isects above cap"][2])
+          > cases["num_isects above cap"][3], "expansion edge cases do not "
+          "reach their edges")
+    return out
 
 
 def segsum_edge_cases(offs_main, cap_main: int, dev, seed: int) -> dict:
@@ -636,7 +930,7 @@ def training(args, cfg, scene, state, statics, dev):
     captured = {}
     capture = patched(
         (pipeline, "rasterize_cuda", types.SimpleNamespace(
-            rasterize_fwd=rasterize_cuda.rasterize_fwd,
+            rasterize_fwd=capturing_residuals(captured),
             rasterize_bwd=capturing(captured, "rasterize_bwd",
                                     rasterize_cuda.rasterize_bwd))),
         (pipeline, "segsum_cuda", types.SimpleNamespace(
@@ -688,8 +982,8 @@ def training(args, cfg, scene, state, statics, dev):
     check(launches["segment_sum_rows"] == 0,
           "segment_sum_rows launched on the main path")
     check(any(s["refined"] for s in steps), "no refining step")
-    check(set(captured) == {"rasterize_bwd", "segment_sum", "splat_grad"},
-          f"captured {sorted(captured)}")
+    check(set(captured) == {"rasterize_fwd", "rasterize_bwd", "segment_sum",
+                            "splat_grad"}, f"captured {sorted(captured)}")
     phase("train", t0, steps=steps, launches=launches,
           ms_per_step=[round(x, 2) for x in step_ms])
 
@@ -747,19 +1041,13 @@ def training(args, cfg, scene, state, statics, dev):
         live_mask[lo:lo + n] = True
     check(not bool(d_k[:, ~live_mask].any()),
           "backward kernel wrote past a tile's live chunks")
-    # the live chunks per tile: a walk of each tile's chunks in turn would
-    # wait on the heaviest tile
-    nl_main = ba[3].long()
-    heavy = int(torch.argmax(tile_live))
-    live_chunk_spread = {
-        "tiles": int(nl_main.numel()), "live_chunks": int(nl_main.sum()),
-        "n_live_max": int(nl_main.max()),
-        "n_live_mean": round(float(nl_main.float().mean()), 3),
-        "tiles_with_no_live_chunk": int((nl_main == 0).sum()),
-        "heaviest_tile": heavy,
-        "heaviest_tile_live_entries": int(tile_live[heavy]),
-        "heaviest_tile_n_live": int(nl_main[heavy]),
-        "live_entries": int(tile_live.sum())}
+    live_spread = live_chunk_spread(ba[1], ba[2], ba[3])
+    # the forward on the same inputs, with and without residuals, and on
+    # the edge cases
+    fa = captured["rasterize_fwd"][0]
+    train_fwd, train_fwd_plain = forward_check("train inputs", *fa)
+    edge_fwd, _ = forward_check("edge cases",
+                                *edge_tiles(dev, args.seed)[:5])
     bwd_edges = bwd_edge_cases(dev, args.seed)
 
     sa = captured["segment_sum"][0]
@@ -822,7 +1110,9 @@ def training(args, cfg, scene, state, statics, dev):
           segment_sum_rows_row_rel_norms=g3(rows_rel),
           segment_sum_rows_max_abs_err=rows_err,
           rasterize_bwd_bit_equal_across_launches=True,
-          live_chunk_spread=live_chunk_spread,
+          live_chunk_spread=live_spread,
+          rasterize_fwd_train_inputs=train_fwd,
+          rasterize_fwd_edge_cases=edge_fwd,
           rasterize_bwd_edge_cases=bwd_edges,
           splat_grad_row_rel_norms=g3(splat_rel),
           splat_grad_row_norms=g3(splat_rows(z_p).norm(dim=1).tolist()),
@@ -847,8 +1137,9 @@ def training(args, cfg, scene, state, statics, dev):
     live_chunks = int(n_live.sum())
     n_tiles = int(starts.numel())
     blend_pairs = int(fp.n_blend)
-    bwd_ops = (live_entries * rasterize_cuda.PIX * PAIR_OPS
-               + blend_pairs * BWD_BLEND_OPS)
+    bwd_work = compositing_work(feats_s, starts, counts_t, n_live, ba[7],
+                                blend_pairs, 0, BWD_BLEND_OPS)
+    bwd_ops = bwd_work["ops"]
     bwd_bytes = (2 * live_entries * FEAT_BYTES + live_chunks * PIX_BYTES
                  + n_tiles * (rasterize_cuda.N_OUT * PIX_BYTES + 16))
 
@@ -911,15 +1202,34 @@ def training(args, cfg, scene, state, statics, dev):
         out.append(timed(name, source, replaces, launches[name], err, fn,
                          plain, lib, nbytes, nops))
         out[-1]["launches_per_step"] = launches[name] / len(steps)
+    # the forward with its residuals at the training inputs: the render
+    # path's bound, plus the checkpoints and n_live written
+    fwd_work = compositing_work(fa[0], fa[1], fa[2], train_fwd_plain.n_live,
+                                fa[3], int(train_fwd_plain.n_blend),
+                                ENTRY_OPS, BLEND_OPS)
+    f_live = fwd_work["live_entries"]
+    f_chunks = int(train_fwd_plain.n_live.sum())
+    fwd_ops = fwd_work["ops"]
+    fwd_bytes = (f_live * FEAT_BYTES + f_chunks * PIX_BYTES
+                 + n_tiles * (12 + rasterize_cuda.N_OUT * PIX_BYTES))
+    fwd_train = timed(
+        "rasterize_fwd", "bilateral_driving_tpu_torch/csrc/rasterize_fwd.cu",
+        "bilateral_driving_tpu/ops/rasterize_pallas.py:370",
+        launches["rasterize_fwd"], train_fwd["max_abs_err"],
+        lambda: rasterize_cuda.rasterize_fwd(*fa, residuals=True),
+        lambda: rasterize_cuda.rasterize_fwd_plain(*fa), None, fwd_bytes,
+        fwd_ops)
+    fwd_train["launches_per_step"] = launches["rasterize_fwd"] / len(steps)
     phase("train_times", t0, live_entries=live_entries, live_chunks=live_chunks,
-          blend_pairs=blend_pairs, bwd_ops=bwd_ops, bwd_bytes=bwd_bytes,
+          blend_pairs=blend_pairs, bwd_work=bwd_work, bwd_bytes=bwd_bytes,
           segment_entries=entries, segment_bytes=seg_bytes,
           segment_rows_bytes=seg_rows_bytes,
           splat_pixels=npix, splat_texels=touched, splat_bytes=splat_bytes,
           splat_bytes_if_only_touched_texels_written=splat_bytes_touched_only,
+          fwd_work=fwd_work, fwd_bytes=fwd_bytes,
           nvidia_smi=nvidia_smi())
 
-    return out, launches["scan"] / len(steps)
+    return out, launches["scan"] / len(steps), fwd_train
 
 
 def run_cli(module: str, *argv) -> float:
@@ -1029,6 +1339,7 @@ def main() -> int:
                                                  rasterize_cuda, scan_cuda,
                                                  scan_utils)
     from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
+    from bilateral_driving_tpu_torch.tools import kernel_resources
     from bilateral_driving_tpu_torch.train import trainer
 
     # ---- env
@@ -1127,30 +1438,24 @@ def main() -> int:
           f"captured {sorted(captured)}")
 
     ea = captured["expand"][0]
-    k1, g1, f1 = expand_cuda.expand_gather(*ea)
-    k2, g2, f2 = expand_cuda.expand_gather_plain(*ea)
-    torch.cuda.synchronize()
-    expand_equal = (torch.equal(k1, k2) and torch.equal(g1, g2)
-                    and torch.equal(f1.view(torch.int32),
-                                    f2.view(torch.int32)))
-    feat_diff = torch.where(torch.isnan(f1) & torch.isnan(f2),
-                            torch.zeros_like(f1), (f1 - f2).abs())
-    expand_err = max(float((k1.long() - k2.long()).abs().max()),
-                     float((g1.long() - g2.long()).abs().max()),
-                     float(feat_diff.max()))
-    check(expand_equal, "expand kernel differs from its plain version "
-          f"(max abs err {expand_err})")
+    expand_checked = expand_cases(ea, dev, args.seed)
+    expand_err = expand_checked["main path"]["max_abs_err"]
 
     ra = captured["rasterize_fwd"][0]
-    img_k = rasterize_cuda.rasterize_fwd(*ra)
-    img_p, n_live, n_blend, _, _ = rasterize_cuda.rasterize_fwd_plain(*ra)
-    torch.cuda.synchronize()
-    raster_err = float((img_k - img_p).abs().max())
-    raster_ok = bool(torch.all((img_k - img_p).abs()
-                               <= RASTER_ATOL + RASTER_RTOL * img_p.abs()))
-    check(torch.isfinite(img_k).all(), "compositing kernel output not finite")
-    check(raster_ok, f"compositing kernel differs from its plain version "
-          f"(max abs err {raster_err})")
+    render_fwd, plain_fwd = forward_check("render path", *ra)
+    raster_err = render_fwd["max_abs_err"]
+    n_live, n_blend = plain_fwd.n_live, plain_fwd.n_blend
+    # registers, shared memory, resident blocks per SM and, for the
+    # forward's clusters, its cluster size and the clusters resident on the
+    # card at once, of the two kernels redesigned for Hopper last, at the
+    # block sizes they launch (their launch bounds)
+    driver = kernel_resources.driver()
+    resources = {name: kernel_resources.resources(
+        str(cuda_build.library_path(name)), None, driver)
+        for name in ("rasterize_fwd", "expand")}
+    check(all(r.get("clusters_on_card", 0) > 0
+              for r in resources["rasterize_fwd"]),
+          f"compositing forward: no cluster fits the card: {resources}")
     # the scan: tools/driver_smoke.py's float32 shapes, then the main
     # path's int32 tile counts and a capacity-long int32 cummax
     gs = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1235,11 +1540,13 @@ def main() -> int:
               f"differs from its plain version at repeat {i}")
     scan_cases[f"main path ({scan_counts.numel()},) i32 sum x 200, "
                "interleaved"] = 0.0
-    phase("kernels", t0, expand_bit_exact=expand_equal,
-          expand_max_abs_err=expand_err,
+    phase("kernels", t0, expand_bit_exact=True,
+          expand_cases=expand_checked,
           gaussians=int(ea[1].shape[0]) - 1, capacity=ea[3],
-          rasterize_max_abs_err=raster_err,
+          rasterize_fwd_render_path=render_fwd,
           rasterize_tolerance=f"atol {RASTER_ATOL} + rtol {RASTER_RTOL}",
+          kernel_resources=resources,
+          render_live_chunk_spread=live_chunk_spread(ra[1], ra[2], n_live),
           tiles=int(ra[1].shape[0]), live_chunks=int(n_live.sum()),
           scan_max_abs_err=scan_cases,
           scan_tolerance=(f"max, min and int32 bit-exact; f32 sum atol "
@@ -1318,12 +1625,12 @@ def main() -> int:
     expand_bytes = (used_gaussians * EXPAND_ROWS_READ * 4 + 4
                     + e_cap * (4 + 4 + 4 * expand_cuda.NFEAT))
     starts = ra[1]
-    live_entries = int(tile_live_entries(starts, ra[2], n_live).sum())
-    blend_pairs = int(n_blend)
-    raster_ops = (live_entries * (ENTRY_OPS + rasterize_cuda.PIX * PAIR_OPS)
-                  + blend_pairs * BLEND_OPS)
+    raster_work = compositing_work(ra[0], starts, ra[2], n_live, ra[3],
+                                   int(n_blend), ENTRY_OPS, BLEND_OPS)
+    live_entries = raster_work["live_entries"]
+    raster_ops = raster_work["ops"]
     raster_bytes = (live_entries * 4 * rasterize_cuda.NFEAT
-                    + starts.numel() * 8 + img_k.numel() * 4)
+                    + starts.numel() * (8 + rasterize_cuda.N_OUT * PIX_BYTES))
     kernels = []
     for name, source, replaces, fn, plain, nbytes, nops, err in [
             ("expand", "bilateral_driving_tpu_torch/csrc/expand.cu",
@@ -1354,8 +1661,8 @@ def main() -> int:
     phase("times", t0, ms_per_frame_median=round(
         1e3 * sorted(frame_s)[len(frame_s) // 2], 2),
           used_gaussians=used_gaussians, expand_bytes=expand_bytes,
-          live_entries=live_entries, blend_pairs=blend_pairs,
-          raster_ops=raster_ops, scan_elements=n_scan, scan_bytes=scan_bytes,
+          raster_work=raster_work, scan_elements=n_scan,
+          scan_bytes=scan_bytes,
           nvidia_smi=nvidia_smi())
 
     # ---- profile: where one frame's device time goes
@@ -1368,9 +1675,11 @@ def main() -> int:
           device_idle_share_of_median_frame=prof.pop(
               "device_idle_share_of_median"), **prof)
 
-    train_kernels, scan_per_step = training(args, cfg, scene, state, statics,
-                                            dev)
+    train_kernels, scan_per_step, fwd_train = training(
+        args, cfg, scene, state, statics, dev)
     kernels[2]["launches_per_step"] = scan_per_step
+    # the forward's second row: with residuals, at the training inputs
+    kernels[1]["residuals_at_train_inputs"] = fwd_train
     kernels += train_kernels
 
     cli(dev)
