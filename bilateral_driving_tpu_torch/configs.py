@@ -1,16 +1,19 @@
-"""The flagship configuration as a Python preset.
+"""The ported configurations as Python presets.
 
-The JAX package reads `bilateral_driving_tpu/configs/omnire_ms_bilateral.yaml`
-through PyYAML; the port carries the same tree here, every block of it, so
-the card path needs no YAML parser. The CLI (tools/train.py) starts from a
+The JAX package reads `bilateral_driving_tpu/configs/*.yaml` through
+PyYAML; the port carries the same trees here, every block of them, so the
+card path needs no YAML parser: FLAGSHIP_TREE is omnire_ms_bilateral.yaml,
+OMNIRE_BILATERAL_TREE omnire_bilateral.yaml (SMPL pedestrians and the
+single 16 x 16 x 8 bilateral grid). The CLI (tools/train.py) starts from a
 preset of PRESETS and applies `key=value` overrides;
 tools.common.trainer_config_from maps a tree onto TrainerConfig.
-tests/test_torch_configs.py and tests/test_torch_cli.py hold this preset
-equal to PyYAML's load of the YAML and to what the JAX package builds from
-it.
+tests/test_torch_configs.py, tests/test_torch_cli.py and
+tests/test_torch_smpl.py hold the presets equal to PyYAML's load of the
+YAMLs and to what the JAX package builds from them.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 from .train.trainer import TrainerConfig
@@ -94,7 +97,37 @@ FLAGSHIP_TREE = {
     "res_schedule": {"double_steps": 250, "downscale_times": 2},
 }
 
-PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE}
+
+def _variant(base: dict, changes: dict, drop=()) -> dict:
+    """A copy of `base` with `changes` merged block by block and the
+    dotted keys of `drop` removed."""
+    tree = copy.deepcopy(base)
+    for block, value in changes.items():
+        if isinstance(value, dict) and isinstance(tree.get(block), dict):
+            tree[block].update(value)
+        else:
+            tree[block] = value
+    for path in drop:
+        block, key = path.split(".")
+        del tree[block][key]
+    return tree
+
+
+# omnire_bilateral.yaml: the flagship tree with SMPLNodes on, the single
+# grid, its TV weight 10 and affine lr 1e-5 (no schedule); the YAML has no
+# sampler refresh and no vis_freq
+OMNIRE_BILATERAL_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"use_smpl": True, "affine_model": "bilateral",
+                 "bilateral_grid_shape": [16, 16, 8]},
+     "losses": {"affine": 10.0},
+     "optim": {"affine": {"lr": 1e-5, "lr_final": None,
+                          "warmup_steps": 0}}},
+    drop=("sampler.refresh_every", "sampler.refresh_downscale",
+          "logging.vis_freq"))
+
+PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
+           "omnire_bilateral": OMNIRE_BILATERAL_TREE}
 
 # background_init.capacity and trainer.max_steps of the same tree
 FLAGSHIP_BG_CAPACITY = FLAGSHIP_TREE["background_init"]["capacity"]

@@ -3,13 +3,17 @@
 The JAX trainer keeps `params`, `statics`, `aux` and `masks` as nested dicts
 and lists of arrays; the port keeps the same nesting with tensors, except
 that a deformation network (`deform_net`: trunk/heads dicts of (in, out)
-weight matrices) becomes a models.deform.DeformNetwork. Inputs are numpy
-arrays (np.asarray of the JAX leaves); nothing of JAX is imported here.
-`train_state_from_jax` carries a training state: parameters, aux, masks,
-density statistics and step; the port builds its own fresh Adam state. It
-takes the synthetic states of the JAX package and those its
-tools/common.build_real_scene builds from a scene directory, whose
-DeformableNodes hold the scene's pedestrians when SMPL is off.
+weight matrices) becomes a models.deform.DeformNetwork and an SMPL
+template (a NamedTuple whose `parents` is wrapped in a static holder)
+becomes a scene.smpl_model.SMPLTemplate with `parents` a plain tuple.
+Inputs are numpy arrays (np.asarray of the JAX leaves); nothing of JAX is
+imported here. `train_state_from_jax` carries a training state: parameters,
+aux, masks, density statistics and step; the port builds its own fresh
+Adam state. It takes the synthetic states of the JAX package and those its
+tools/common.build_real_scene builds from a scene directory: SMPLNodes
+(template, instances_fv, nn_ind, on_mesh_x, point_ids, the pose tracks)
+when SMPL is on, the pedestrians in DeformableNodes when it is off, and
+the single grid's Affine as well as the multi-scale one.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from .models.deform import DeformNetwork
+from .scene import smpl_model
 from .train import density, trainer
 
 
@@ -48,8 +53,30 @@ def deform_net_from_jax(tree, device) -> DeformNetwork:
     return net.to(device).requires_grad_(False)
 
 
+def _parents(parents) -> tuple:
+    return tuple(int(i) for i in _meta(parents))
+
+
+def smpl_template_from_jax(template, device) -> smpl_model.SMPLTemplate:
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)
+    return smpl_model.SMPLTemplate(
+        t(template.j_canonical), t(template.a0_inv),
+        t(template.verts_canonical), t(template.lbs_weights),
+        _parents(template.parents))
+
+
+def smpl_model_from_jax(model, device) -> smpl_model.SMPLModel:
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)
+    return smpl_model.SMPLModel(
+        t(model.v_template), t(model.shapedirs), t(model.j_regressor),
+        t(model.lbs_weights), _parents(model.parents),
+        np.asarray(model.faces, np.int64))
+
+
 def tree_from_jax(tree, device):
     """Dicts and lists recurse, arrays become tensors of the same dtype."""
+    if hasattr(tree, "a0_inv"):
+        return smpl_template_from_jax(tree, device)
     if isinstance(tree, dict):
         return {k: (deform_net_from_jax(v, device) if k == "deform_net"
                     else tree_from_jax(v, device)) for k, v in tree.items()}

@@ -1,5 +1,5 @@
 """Rotation math on tensors: port of bilateral_driving_tpu/core/transforms.py
-(the functions the render path uses).
+(the functions the render path and the SMPL bodies use).
 
 Quaternions are (w, x, y, z). Every function broadcasts over leading batch
 dimensions and stays finite at the origin, in both passes.
@@ -101,3 +101,23 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
         *best.shape, 1, 4))[..., 0, :]
     q = quat_normalize(q)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def axis_angle_to_rotmat(aa: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) by Rodrigues' formula, finite at
+    aa = 0 in both passes."""
+    theta = safe_norm(aa)
+    x, y, z = safe_normalize(aa).unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero],
+                    dim=-1).reshape(aa.shape[:-1] + (3, 3))
+    th = theta[..., None]
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device).expand(K.shape)
+    return eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+
+
+def axis_angle_to_quat(aa: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 4) wxyz quaternion, finite at aa = 0."""
+    half = 0.5 * safe_norm(aa)
+    return torch.cat([torch.cos(half), torch.sin(half) * safe_normalize(aa)],
+                     dim=-1)

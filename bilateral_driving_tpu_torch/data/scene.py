@@ -19,7 +19,7 @@ tensors on the scene's device. Images and masks are decoded by PIL, or read
 from a pixel pack (tools/pack_scene.py: the same decoded arrays in one
 .npz, keyed by their path under the scene directory), so a machine without
 PIL loads a packed scene; resizing at load needs PIL. Tracked SMPL poses
-(`humanpose/smpl.pkl`) wait for the SMPL slice.
+come from `humanpose/smpl.pkl` (`load_smpl_poses`).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import dataclasses
 import json
 import logging
 import os
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -147,7 +148,7 @@ class SceneData:
     height: int
     # per-camera ego-vehicle occlusion mask (H, W) float32, 1 = ego car
     egocar_masks: Optional[np.ndarray] = None   # (num_cams, H, W)
-    # tracked SMPL body poses (the SMPL slice); None here
+    # tracked SMPL body poses per instance id (load_smpl_poses), or None
     smpl_poses: Optional[Dict[str, Dict[str, np.ndarray]]] = None
     # source dataset key ("waymo", "nuscenes/6cams", ...); None = unknown
     dataset: Optional[str] = None
@@ -536,7 +537,66 @@ def load_scene(
     )
     if compute_depth_maps and any(p.shape[0] for p in lidar_pts):
         data.lidar_depth_maps = project_lidar_depth(data)
+    data.smpl_poses = load_smpl_poses(scene_dir, frames, inv_first)
     return data
+
+
+def load_smpl_poses(scene_dir, frames, inv_first):
+    """Per-frame SMPL joint rotations from `humanpose/smpl.pkl` (the
+    4D-Humans tracking output the reference reads at
+    nuscenes_sourceloader.py:284-336).
+
+    The file maps instance id -> {"valid_mask" (F_total,),
+    "selected_cam_idx" (F_total,), "smpl": {"betas" (F, 10), "body_pose"
+    (F, 23, 3, 3), "global_orient" (F, 3, 3)}}. The global orient, estimated
+    in the camera the track was taken from, is rotated into the recentred
+    world by that camera's c2w. Returns id -> {"quats" (F, 24, 4), "betas"
+    (10,), "valid" (F,)} on the loaded frames, or None when absent. A plain
+    pickle is read first; joblib (which may be absent) only for what pickle
+    cannot read.
+    """
+    path = os.path.join(scene_dir, "humanpose", "smpl.pkl")
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            smpl_dict = pickle.load(f)
+    except Exception:
+        import joblib
+        smpl_dict = joblib.load(path)
+
+    out = {}
+    F = len(frames)
+    for iid, d in smpl_dict.items():
+        quats = np.zeros((F, 24, 4), np.float32)
+        quats[..., 0] = 1.0
+        valid = np.zeros(F, bool)
+        betas = np.zeros(10, np.float32)
+        rots, got = [], []
+        vm = np.asarray(d["valid_mask"])
+        for fi, t in enumerate(frames):
+            if t >= len(vm) or not vm[t]:
+                continue
+            body = np.asarray(d["smpl"]["body_pose"][t],
+                              np.float32).reshape(23, 3, 3)
+            orient = np.asarray(d["smpl"]["global_orient"][t],
+                                np.float32).reshape(3, 3)
+            cam = int(np.asarray(d["selected_cam_idx"][t]).reshape(()))
+            c2w_path = os.path.join(scene_dir, "extrinsics",
+                                    f"{t:03d}_{cam}.txt")
+            if os.path.exists(c2w_path):
+                c2w = inv_first @ np.loadtxt(c2w_path)
+                orient = c2w[:3, :3].astype(np.float32) @ orient
+            rots.append(np.concatenate([orient[None], body], axis=0))
+            got.append(fi)
+            valid[fi] = True
+            betas = np.asarray(d["smpl"]["betas"][t],
+                               np.float32).reshape(-1)[:10]
+        if got:
+            quats[np.asarray(got)] = transforms.rotmat_to_quat(
+                torch.from_numpy(np.stack(rots))).numpy()
+        out[str(iid)] = {"quats": quats, "betas": betas, "valid": valid}
+    return out or None
 
 
 def load_instances(scene_dir, frames, inv_first, class_to_node

@@ -1,12 +1,14 @@
 """Synthetic driving scene: port of bilateral_driving_tpu/data/synthetic.py
 (`make_scene`, `make_batch`) on torch.Generator, plus scene parameters drawn
-straight from the seed (initialising from points, with its KNN scales, is
-the CLI's set-up and waits for the CLI slice).
+straight from the seed (`random_state`; initialising from points, with its
+KNN scales, is the CLI's set-up).
 
 The scene: a camera rig of `num_cams` cameras (yawed like nuScenes' six)
 driving forward along +z; a background of ground, two facades and clutter;
-rigid "cars" and deformable "pedestrians" with per-frame pose tracks.
-Cameras follow OpenCV axes (x right, y down, z forward).
+rigid "cars" and deformable "pedestrians" with per-frame pose tracks; and,
+optionally, SMPL pedestrians walking beside the rig in view of its
+cameras, each with its own random body (the licensed SMPL asset is not
+used). Cameras follow OpenCV axes (x right, y down, z forward).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 
 from ..core import sh as sh_lib
 from ..models import bilateral, deform, encoders
+from ..scene import smpl_model
+from ..train import setup
 from ..train.trainer import SceneState
 
 CAM_YAWS_DEG = (0.0, 55.0, -55.0, 110.0, -110.0, 180.0)
@@ -72,12 +76,37 @@ def _instances(g, num, pts, size, num_frames, lanes, speed):
             "frame_valid": frame_valid, "sizes": size_t}
 
 
+def _smpl_walkers(g, num, num_frames, num_cams):
+    """Root yaw quats (F, I, 4), translations (F, I, 3) and frame validity
+    (F, I) of SMPL pedestrians: walker i stays 4-10 m from the rig, in the
+    view of camera i mod num_cams (within 15 degrees of its axis), its
+    body centre 0.9 m above the ground, drifting slowly; about 5% of
+    (frame, walker) pairs are invalid."""
+    cams = torch.arange(num) % num_cams
+    yaw = (torch.tensor([math.radians(CAM_YAWS_DEG[int(c) % 6])
+                         for c in cams])
+           + math.radians(15.0) * (2 * torch.rand(num, generator=g) - 1))
+    dist = _u(g, (num,), 4.0, 10.0)
+    drift = _u(g, (num, 3), -0.05, 0.05) * torch.tensor([1.0, 0.0, 1.0])
+    f = torch.arange(num_frames, dtype=torch.float32)[:, None, None]
+    base = torch.stack([dist * torch.sin(yaw),
+                        torch.full((num,), GROUND_Y - 0.9),
+                        dist * torch.cos(yaw)], dim=-1)
+    rig = torch.stack([torch.zeros(num_frames), torch.zeros(num_frames),
+                       torch.arange(num_frames, dtype=torch.float32)], -1)
+    trans = rig[:, None, :] + base[None] + drift[None] * f
+    heading = _u(g, (num,), -math.pi, math.pi).expand(num_frames, num)
+    frame_valid = torch.rand((num_frames, num), generator=g) > 0.05
+    return {"quats": _yaw_quat(heading), "trans": trans,
+            "frame_valid": frame_valid}
+
+
 def make_scene(generator: torch.Generator, num_bg: int = 2000,
                num_frames: int = 6, num_cams: int = 1, width: int = 128,
                height: int = 96, focal: float | None = None,
                num_rigid: int = 1, rigid_pts: int = 300,
                num_deformable: int = 0, deformable_pts: int = 0,
-               device="cuda") -> SyntheticScene:
+               num_smpl: int = 0, device="cuda") -> SyntheticScene:
     g = generator
     n_ground = num_bg * 45 // 100
     n_facade = num_bg * 35 // 100
@@ -115,6 +144,9 @@ def make_scene(generator: torch.Generator, num_bg: int = 2000,
                  [-math.sin(yaw), 0.0, math.cos(yaw)]])
             c2w[:3, 3] = torch.tensor([0.0, 0.0, 1.0 * f])
             c2ws.append(c2w)
+    if num_smpl:
+        # drawn last, so a scene without them is drawn as before
+        inst["SMPLNodes"] = _smpl_walkers(g, num_smpl, num_frames, num_cams)
     focal = 0.9 * width if focal is None else focal
     K = torch.tensor([[focal, 0.0, width / 2], [0.0, focal, height / 2],
                       [0.0, 0.0, 1.0]])
@@ -153,9 +185,34 @@ def _gaussian_params(g, means, colors, capacity, sh_degree, device):
     return params, mask.to(device)
 
 
+def _smpl_state(g, d, cfg, smpl_verts: int, device):
+    """SMPLNodes of the scene's walkers through train.setup.build_smpl:
+    one synthetic body of `smpl_verts` vertices, random betas, the
+    da-pose with per-frame joint perturbations, and anisotropic scales of
+    0.5-3 cm drawn here (build_smpl's isotropic 1 cm leave the
+    quaternions without gradient)."""
+    num_frames, num = d["trans"].shape[:2]
+    model = smpl_model.synthetic_model(g, num_verts=smpl_verts,
+                                       device=device)
+    betas = torch.randn((num, 10), generator=g)
+    body = (smpl_model.da_pose_quats(device="cpu")[1:]
+            + 0.1 * torch.randn((num_frames, num, 23, 4), generator=g))
+    out = setup.build_smpl(
+        g, model, betas.to(device), d["quats"][:, :, None, :],
+        body.to(device), d["trans"], d["frame_valid"],
+        sh_degree=cfg.sh_degree)
+    n = out[0]["log_scales"].shape[0]
+    out[0]["log_scales"] = torch.log(_u(g, (n, 3), 0.005, 0.03)).to(device)
+    return out
+
+
 def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
-                 bg_capacity: int, step: int, device="cuda"):
-    """Scene parameters of every flagship class drawn from `generator`.
+                 bg_capacity: int, step: int, device="cuda",
+                 smpl_verts: int = 6890):
+    """Scene parameters of every class of `cfg` drawn from `generator`: the
+    multi-scale or the single bilateral grids as cfg.affine_model says,
+    and with cfg.use_smpl SMPLNodes of the scene's walkers (bodies of
+    `smpl_verts` vertices, the SMPL mesh's count by default), drawn last.
     Returns (SceneState, statics)."""
     g = generator
     params, statics, aux, masks = {}, {}, {}, {}
@@ -163,6 +220,8 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
         g, scene.bg_means, scene.bg_colors, bg_capacity, cfg.sh_degree,
         device)
     for name, d in scene.inst.items():
+        if name == "SMPLNodes":
+            continue
         p, masks[name] = _gaussian_params(g, d["means"], d["colors"],
                                           d["means"].shape[0], cfg.sh_degree,
                                           device)
@@ -183,11 +242,21 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
     base = (0.4 + 0.4 * torch.rand((6, 1, 1, 3), generator=g)
             + 0.05 * torch.rand((6, res, res, 3), generator=g))
     params["Sky"] = {"base": base.to(device)}
-    affine = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid, device)
-    for level in affine["levels"]:
-        level["grids"] += 0.02 * torch.randn(
-            level["grids"].shape, generator=g).to(device)
+    if cfg.affine_model == "bilateral":
+        affine = bilateral.init_bilateral(
+            cfg.num_images, *cfg.bilateral_grid_shape, device=device)
+        grids = [affine["grids"]]
+    else:
+        affine = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
+                                           device)
+        grids = [level["grids"] for level in affine["levels"]]
+    for grid in grids:
+        grid += 0.02 * torch.randn(grid.shape, generator=g).to(device)
     params["Affine"] = affine
+    if cfg.use_smpl:
+        (params["SMPLNodes"], statics["SMPLNodes"], aux["SMPLNodes"],
+         masks["SMPLNodes"]) = _smpl_state(g, scene.inst["SMPLNodes"], cfg,
+                                           smpl_verts, device)
     return SceneState(params, aux, masks, step), statics
 
 

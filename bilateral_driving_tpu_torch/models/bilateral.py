@@ -1,10 +1,12 @@
-"""Multi-scale bilateral-grid appearance: port of the multi-scale path of
-bilateral_driving_tpu/models/bilateral.py, with its total-variation loss.
+"""Bilateral-grid appearance: port of the single-scale and multi-scale
+paths of bilateral_driving_tpu/models/bilateral.py, with their
+total-variation losses.
 
 Per-image grids of 3x4 colour affines, (N, 12, L, H, W), identity at init,
 sliced trilinearly at (x, y, gray(rgb)) with `grid_sample` semantics
-(align_corners=True, border padding); each level is sliced at downsampled
-guidance, upsampled back to full size and applied in turn.
+(align_corners=True, border padding). The single grid (16 x 16 x 8 by
+default) is sliced at full resolution; each multi-scale level is sliced at
+downsampled guidance, upsampled back to full size and applied in turn.
 """
 from __future__ import annotations
 
@@ -123,6 +125,30 @@ def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
         out = torch.einsum("ywc,wx->yxc", out,
                            _linear_weights(W, w, img.device))
     return out
+
+
+def init_bilateral(num_images: int, grid_x: int = 16, grid_y: int = 16,
+                   grid_w: int = 8, device="cuda"):
+    return {"grids": init_grid(num_images, grid_x, grid_y, grid_w, device)}
+
+
+def bilateral_affines(params, rgb: torch.Tensor, img_idx: int,
+                      neighbor_idx: Sequence[int] | None = None
+                      ) -> torch.Tensor:
+    """(H, W, 3, 4) affines of one image's single grid; with `neighbor_idx`
+    (test views) the mean of the affines sliced from the neighbouring
+    training images' grids."""
+    h, w, _ = rgb.shape
+    xy = uv_grid(h, w, rgb.dtype, rgb.device)
+    grids = params["grids"]
+    if neighbor_idx is None:
+        return slice_affines(grids[img_idx], xy, rgb)
+    return torch.stack([slice_affines(grids[int(i)], xy, rgb)
+                        for i in neighbor_idx]).mean(dim=0)
+
+
+def bilateral_tv_loss(params) -> torch.Tensor:
+    return total_variation_loss(params["grids"])
 
 
 def init_multiscale(num_images: int,

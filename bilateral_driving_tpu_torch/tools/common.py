@@ -1,21 +1,26 @@
 """Configuration tree -> trainer construction shared by the CLIs: port of
 bilateral_driving_tpu/tools/common.py for real drivestudio scene
-directories and the flagship classes.
+directories and the ported classes.
 
 `trainer_config_from` maps a tree (configs.PRESETS plus overrides) onto
 TrainerConfig; `build_real_scene` loads a scene and builds every class
-from its points. With `trainer.use_smpl` off the SMPL-class instances go to
-DeformableNodes, as in the JAX package. The synthetic-scene builder, PVG and
-deformgs backgrounds and SMPLNodes wait for their slices.
+from its points. SMPL-class instances become SMPLNodes when
+`trainer.use_smpl` is on and a body model is given (`smpl.model_path`: the
+SMPL pickle, or "synthetic" for the port's own random body); otherwise they
+go to DeformableNodes, as in the JAX package. The synthetic-scene builder
+and the PVG and deformgs backgrounds wait for their slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
+from ..core import transforms
 from ..data import scene as scene_mod
+from ..scene import smpl_model
 from ..train import density, setup, trainer
 from ..utils.config import ConfigDict, validate_keys
 
@@ -102,6 +107,7 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
         affine_model=t.get("affine_model", "multiscale_bilateral"),
         use_camera_opt=t.get("use_camera_opt", False),
         use_camera_perturb=t.get("use_camera_perturb", False),
+        use_voxel_deformer=t.get("use_voxel_deformer", False),
         near_plane=render.get("near_plane", 0.1),
         far_plane=render.get("far_plane", 1e7),
         radius_clip=render.get("radius_clip", 0.0),
@@ -128,6 +134,7 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
         mask_loss_type=losses.get("mask_loss_type", "safe_bce"),
         max_depth=losses.get("max_depth", 80.0),
         w_rigid_temporal=losses.get("rigid_temporal", 0.0),
+        w_smpl_joint_smooth=losses.get("smpl_joint_smooth", 0.0),
         # presence of the dynamic_region block enables it at the reference's
         # default weight 1.0 (base.py:640-641)
         w_dynamic_region=(losses.get("dynamic_region") or {}).get("w", 1.0)
@@ -143,10 +150,12 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
         kw["ms_grid"] = tuple(tuple(g) for g in t["ms_grid"])
     if "guidance_factor" in t:
         kw["guidance_factor"] = tuple(t["guidance_factor"])
-    regs = cfg.get("background_reg", None)
-    if regs:
-        kw["background_reg"] = tuple((k, tuple(v.items()))
-                                     for k, v in regs.items())
+    if "bilateral_grid_shape" in t:
+        kw["bilateral_grid_shape"] = tuple(t["bilateral_grid_shape"])
+    for key in ("background_reg", "smpl_reg"):
+        regs = cfg.get(key, None)
+        if regs:
+            kw[key] = tuple((k, tuple(v.items())) for k, v in regs.items())
     optim = cfg.get("optim", None)
     if optim:
         # per-config lr-group overrides: group -> {lr, lr_final,
@@ -202,9 +211,6 @@ def build_real_scene(cfg: ConfigDict, seed: int = 0, device="cuda"):
     tcfg = trainer_config_from(cfg, data.num_images, data.num_frames,
                                data.scene_radius(),
                                scene_origin=0.5 * (aabb[0] + aabb[1]))
-    if tcfg.use_smpl:
-        raise NotImplementedError("SMPLNodes are not ported yet: the SMPL "
-                                  "slice")
     gen = torch.Generator().manual_seed(seed)
     params = setup.build_models(tcfg, device)
     masks, aux, statics = {}, {}, {}
@@ -232,11 +238,21 @@ def build_real_scene(cfg: ConfigDict, seed: int = 0, device="cuda"):
             # safe_init_models: drop empty classes (scene_graph.py:73-84)
             tcfg = dataclasses.replace(tcfg, use_rigid=False)
 
+    if tcfg.use_smpl:
+        built = _smpl_from_scene(gen, cfg, data, tcfg, device)
+        if built is not None:
+            (params["SMPLNodes"], statics["SMPLNodes"], aux["SMPLNodes"],
+             masks["SMPLNodes"]) = built
+        else:
+            tcfg = dataclasses.replace(tcfg, use_smpl=False)
+
     if tcfg.use_deformable:
-        # with SMPL off, SMPL-class instances fall through to
-        # DeformableNodes (the reference's load_smpl=False routing)
+        # with SMPL off (or no body model) SMPL-class instances fall
+        # through to DeformableNodes (the reference's load_smpl=False
+        # routing)
         obj = scene_mod.get_init_objects(
-            data, ("DeformableNodes", "SMPLNodes"))
+            data, ("DeformableNodes",) if tcfg.use_smpl
+            else ("DeformableNodes", "SMPLNodes"))
         if obj is not None:
             cap = int(cfg.get("deformable_capacity",
                               2 * obj["means"].shape[0]))
@@ -249,3 +265,49 @@ def build_real_scene(cfg: ConfigDict, seed: int = 0, device="cuda"):
             tcfg = dataclasses.replace(tcfg, use_deformable=False)
 
     return tcfg, data, params, statics, aux, masks
+
+
+def _smpl_from_scene(generator, cfg, data, tcfg, device):
+    """SMPLNodes from the scene's SMPL-class instances and their tracked
+    poses (data.smpl_poses): the body is the pickle at smpl.model_path,
+    or with "synthetic" the port's own random body of 256 vertices (drawn
+    from a fixed seed, so every build has the same body). None without
+    instances, without a body model or without SMPL-class instances."""
+    smpl_path = cfg.get_path("smpl.model_path")
+    inst = data.instances
+    synthetic_body = smpl_path == "synthetic"
+    if inst is None or smpl_path is None or not (
+            synthetic_body or os.path.exists(smpl_path)):
+        return None
+    sel = [i for i, nt in enumerate(inst.node_types) if nt == "SMPLNodes"]
+    if not sel:
+        return None
+    model = (smpl_model.synthetic_model(torch.Generator().manual_seed(0),
+                                        num_verts=256, device=device)
+             if synthetic_body else smpl_model.load_model(smpl_path, device))
+    F, I = data.num_frames, len(sel)
+    poses = inst.poses[:, sel]
+    root_q = transforms.rotmat_to_quat(
+        torch.from_numpy(np.ascontiguousarray(poses[..., :3, :3]))).numpy()
+    body = np.broadcast_to(
+        smpl_model.da_pose_quats(device="cpu")[1:].numpy(),
+        (F, I, 23, 4)).copy()
+    betas = np.zeros((I, 10), np.float32)
+    frame_valid = inst.frame_valid[:, sel].copy()
+    # tracked joint angles: root = the world-rotated global orient, body =
+    # the 23 joint quats; the translation stays the instance box centre
+    if data.smpl_poses:
+        for local_i, i in enumerate(sel):
+            track = data.smpl_poses.get(str(inst.ids[i]))
+            if track is None:
+                continue
+            tv = track["valid"]
+            root_q[tv, local_i] = track["quats"][tv, 0]
+            body[tv, local_i] = track["quats"][tv, 1:]
+            betas[local_i] = track["betas"]
+            frame_valid[:, local_i] &= tv
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return setup.build_smpl(
+        generator, model, t(betas), t(root_q)[:, :, None, :], t(body),
+        t(poses[..., :3, 3]), t(frame_valid), sh_degree=tcfg.sh_degree,
+        use_voxel_deformer=tcfg.use_voxel_deformer)

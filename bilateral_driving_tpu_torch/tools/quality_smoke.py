@@ -1,19 +1,21 @@
 """Long training run of the port with asserted interpolation-quality floors.
 
-The port's counterpart of tools/quality_smoke.py: trains the flagship
-configuration (omnire_ms_bilateral, with its own `use_smpl: false`) on
+The port's counterpart of tools/quality_smoke.py, with its protocol:
+trains omnire_ms_bilateral with `trainer.use_smpl=true` and
+`smpl.model_path=synthetic` (the pedestrian in SMPLNodes, its body the
+port's own random draw: the licensed SMPL asset is not used) on
 tests/fixtures/proto_scene (30 frames x 2 cameras at 96 x 64, read from its
 pixel pack) through tools.train, holds out every 10th frame, evaluates
 with tools.eval --compute_geo, and asserts the same floors set in advance:
 test PSNR >= 20 and SSIM >= 0.55, full-split PSNR >= 22 and SSIM >= 0.60.
-The overrides are tools/quality_smoke.py's, without its SMPL switch.
+(QUALITY_torch.json is the record of this tool's run before SMPL was
+ported, without the SMPL switch: the pedestrian in DeformableNodes.)
 
     python -m bilateral_driving_tpu_torch.tools.quality_smoke \
-        [--steps 5000] [--out QUALITY_torch.json] [--device cuda]
+        [--steps 5000] [--out QUALITY_torch_smpl.json] [--device cuda]
 
-Writes QUALITY_torch.json (the keys of QUALITY_r05.json plus peak device
-memory, the device and its nvidia-smi name and power limit) at the repo
-root.
+Writes the record (the keys of QUALITY_r05.json plus peak device memory,
+the device and its nvidia-smi name and power limit) at the repo root.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ def overrides(steps: int) -> list:
         "data.downscale=1",
         f"trainer.max_steps={steps}",
         "trainer.steps_per_dispatch=8",
+        "trainer.use_smpl=true",
+        "smpl.model_path=synthetic",
         "trainer.sh_degree=2",
         "trainer.sh_degree_interval=500",
         "trainer.envlight_resolution=64",
@@ -78,7 +82,8 @@ def nvidia_smi() -> str | None:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=5000)
-    p.add_argument("--out", default=os.path.join(REPO, "QUALITY_torch.json"))
+    p.add_argument("--out",
+                   default=os.path.join(REPO, "QUALITY_torch_smpl.json"))
     p.add_argument("--workdir", default=None)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -120,8 +125,10 @@ def main(argv=None):
     artifact = {
         "scene": "proto_scene (raycast fixture, 96x64, 2 cams x 30 frames, "
                  "interior frames 10 & 20 held out via stride 10)",
-        "config": "omnire_ms_bilateral (use_smpl off, the YAML's own "
-                  "setting); tools/quality_smoke.py's other overrides",
+        "config": "omnire_ms_bilateral + use_smpl (smpl.model_path="
+                  "synthetic: the port's own random body of 256 vertices, "
+                  "not the JAX package's draw); tools/quality_smoke.py's "
+                  "overrides",
         "steps": args.steps,
         "wallclock_s": round(wall, 1),
         "steps_per_s": round(args.steps / wall, 2),
@@ -167,6 +174,8 @@ def main(argv=None):
         (math.isfinite(artifact["test_chamfer"]), "no chamfer"),
         (math.isfinite(artifact["test_human_psnr"]), "no human PSNR"),
         (math.isfinite(artifact["test_vehicle_psnr"]), "no vehicle PSNR"),
+        ("SMPLNodes" in summary["final_points"],
+         "the pedestrian is not in SMPLNodes"),
     ]
     failed = [what for ok, what in checks if not ok]
     if failed:

@@ -1,10 +1,11 @@
 """Scene and model construction from a scene's initial points: port of
-bilateral_driving_tpu/train/setup.py for the flagship classes (vanilla
-Background, RigidNodes, DeformableNodes, EnvLight, multi-scale bilateral).
+bilateral_driving_tpu/train/setup.py for the vanilla Background,
+RigidNodes, SMPLNodes, DeformableNodes, EnvLight and the single and
+multi-scale bilateral grids.
 
-Every random draw (quaternions, instance codes, the deformation network)
-comes from an explicit torch.Generator; the PVG, deformgs and SMPL builders
-wait for their slices.
+Every random draw (quaternions, colours, instance codes, the deformation
+network) comes from an explicit torch.Generator; the PVG and deformgs
+builders wait for their slices.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..core import sampling, sh as sh_lib
 from ..models import bilateral, deform, encoders, sky as sky_mod
+from ..scene import smpl_model, smpl_node
 
 INIT_OPACITY = 0.1
 
@@ -111,19 +113,66 @@ def build_deformable(generator, capacity: int, means, colors, point_ids,
     return params, statics, aux, mask
 
 
+def build_smpl(generator, model: smpl_model.SMPLModel, betas,
+               root_quats_fi14, body_quats_fi234, trans_fi3, frame_valid,
+               sh_degree: int = 3, init_opacity: float = 0.88,
+               use_voxel_deformer: bool = False):
+    """SMPL pedestrians: betas (I, 10), root quats (F, I, 1, 4), body quats
+    (F, I, 23, 4), translations (F, I, 3), frame_valid (F, I). Points start
+    on the canonical (da-pose) template vertices with uniform random
+    colours and 0.01 scales; where the model has a mesh, normal-aligned
+    quaternions and 1-ring disk scales (smpl_model.mesh_init_qso). Returns
+    (params, statics, aux, mask); statics hold the template, the KNN
+    indices of the regularisers and the init positions `on_mesh_x`."""
+    if use_voxel_deformer:
+        raise NotImplementedError("the voxel skinning deformer is not "
+                                  "ported yet: the voxel-deformer slice")
+    template = smpl_model.make_template(model, betas)
+    num_inst, V = template.verts_canonical.shape[:2]
+    means = template.verts_canonical.reshape(-1, 3)
+    dev = means.device
+    n = means.shape[0]
+    colors = torch.rand((n, 3), generator=generator,
+                        device=generator.device).to(dev)
+    params, mask = gaussian_dict(generator, n, means, colors,
+                                 torch.full((n,), 0.01, device=dev),
+                                 sh_degree, init_opacity)
+    if model.faces.shape[0] > 1:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                 device=generator.device))
+        mq, ms = smpl_model.mesh_init_qso(
+            template.verts_canonical.cpu().numpy(), model.faces, seed)
+        params["quats"] = torch.from_numpy(mq).to(dev)
+        params["log_scales"] = torch.from_numpy(ms).to(dev)
+    params["instances_quats"] = root_quats_fi14
+    params["smpl_quats"] = body_quats_fi234
+    params["instances_trans"] = trans_fi3
+    statics = {"template": template, "instances_fv": frame_valid,
+               "nn_ind": smpl_node.compute_knn(means, num_inst, k=5),
+               "on_mesh_x": means}
+    point_ids = torch.arange(num_inst, dtype=torch.int32,
+                             device=dev).repeat_interleave(V)
+    return params, statics, {"point_ids": point_ids}, mask
+
+
 def build_models(cfg, device="cuda"):
     """The non-Gaussian models keyed as the trainer expects: the EnvLight
-    sky and the multi-scale bilateral grids."""
+    sky and the multi-scale or single bilateral grids."""
     if cfg.sky_model != "envlight":
         raise NotImplementedError(f"sky_model={cfg.sky_model!r} is not "
                                   "ported yet: the sky-MLP slice")
-    if cfg.affine_model != "multiscale_bilateral":
-        raise NotImplementedError(f"affine_model={cfg.affine_model!r} is "
-                                  "not ported yet: the appearance-variants "
-                                  "slice")
     if cfg.use_camera_opt or cfg.use_camera_perturb:
         raise NotImplementedError("camera refinement is not ported yet: "
                                   "the camera-refinement slice")
+    if cfg.affine_model == "multiscale_bilateral":
+        affine = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
+                                           device)
+    elif cfg.affine_model == "bilateral":
+        affine = bilateral.init_bilateral(
+            cfg.num_images, *cfg.bilateral_grid_shape, device=device)
+    else:
+        raise NotImplementedError(f"affine_model={cfg.affine_model!r} is "
+                                  "not ported yet: the appearance-variants "
+                                  "slice")
     return {"Sky": sky_mod.init_envlight(cfg.envlight_resolution, device),
-            "Affine": bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
-                                                device)}
+            "Affine": affine}

@@ -1,12 +1,14 @@
 """Scene trainer: port of bilateral_driving_tpu/train/trainer.py for the
-flagship configuration (configs.flagship_config).
+flagship configuration (configs.flagship_config) and omnire_bilateral
+(SMPL pedestrians, the single bilateral grid).
 
 forward = per-class Gaussians -> concat -> tiled rasterize -> EnvLight sky
-compositing -> multi-scale bilateral appearance. A training step is
-compute_grads (forward, the loss stack and autograd, with a zeros
+compositing -> bilateral appearance (multi-scale or single). A training
+step is compute_grads (forward, the loss stack and autograd, with a zeros
 `means2d_dummy` whose gradient is the per-Gaussian screen gradient) then
 apply_grads_and_refine (Adam per parameter group at its scheduled rate,
-densification statistics and, every refine_interval steps, refinement).
+densification statistics and, every refine_interval steps, refinement of
+every class but the fixed-size SMPLNodes).
 Other configurations' branches raise NotImplementedError naming the slice
 they wait for.
 
@@ -24,7 +26,7 @@ import torch
 from ..models import bilateral, sky as sky_mod
 from ..ops import pipeline
 from ..ops.camera import viewmat_from_c2w
-from ..scene import background, deformable, nodes, rigid
+from ..scene import background, deformable, nodes, rigid, smpl_node
 from . import density, losses, schedules
 
 
@@ -39,6 +41,7 @@ class TrainerConfig:
     affine_model: str = "multiscale_bilateral"
     use_camera_opt: bool = False
     use_camera_perturb: bool = False
+    use_voxel_deformer: bool = False
 
     # render
     near_plane: float = 0.1
@@ -52,6 +55,7 @@ class TrainerConfig:
     # appearance and sky
     ms_grid: tuple = bilateral.DEFAULT_MS_GRID
     guidance_factor: tuple = bilateral.DEFAULT_GUIDANCE_FACTOR
+    bilateral_grid_shape: tuple = (16, 16, 8)
     envlight_resolution: int = 256
     num_images: int = 1
     num_frames: int = 1
@@ -75,7 +79,9 @@ class TrainerConfig:
 
     # per-class regularisers: (("name", (("key", value), ...)), ...)
     background_reg: tuple = ()
+    smpl_reg: tuple = ()
     w_rigid_temporal: float = 0.0
+    w_smpl_joint_smooth: float = 0.0
     # dynamic-region loss weight: > 0 adds a dynamic-classes-only opacity
     # render to the training forward
     w_dynamic_region: float = 0.0
@@ -127,17 +133,17 @@ def _later(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet: {slice_}")
 
 
-def _check_flagship(cfg: TrainerConfig):
+def _check_ported(cfg: TrainerConfig):
     if cfg.background_model != "vanilla":
         raise _later(f"background_model={cfg.background_model!r}",
                      "the background-variants slice")
-    if cfg.use_smpl:
-        raise _later("SMPLNodes", "the SMPL slice")
+    if cfg.use_smpl and cfg.use_voxel_deformer:
+        raise _later("the voxel skinning deformer", "the voxel-deformer slice")
     if cfg.use_camera_opt or cfg.use_camera_perturb:
         raise _later("camera refinement", "the camera-refinement slice")
     if cfg.sky_model != "envlight":
         raise _later(f"sky_model={cfg.sky_model!r}", "the sky-MLP slice")
-    if cfg.affine_model != "multiscale_bilateral":
+    if cfg.affine_model not in ("multiscale_bilateral", "bilateral"):
         raise _later(f"affine_model={cfg.affine_model!r}",
                      "the appearance-variants slice")
 
@@ -168,7 +174,7 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
     class's aux arrays (see merge_statics). `opacity_multiplier` (N,)
     scales the concatenated opacities (the per-class decomposed renders
     zero every class but one)."""
-    _check_flagship(cfg)
+    _check_ported(cfg)
     bundles = {"Background": background.gaussians(
         params["Background"], masks["Background"], cam_origin, step,
         background.BackgroundConfig(cfg.sh_degree, cfg.sh_degree_interval))}
@@ -177,6 +183,11 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
             params["RigidNodes"], statics["RigidNodes"], masks["RigidNodes"],
             cam_origin, step, frame, cfg.num_frames, in_test_set,
             rigid.RigidConfig(cfg.sh_degree, cfg.sh_degree_interval))
+    if cfg.use_smpl:
+        bundles["SMPLNodes"] = smpl_node.gaussians(
+            params["SMPLNodes"], statics["SMPLNodes"], masks["SMPLNodes"],
+            cam_origin, step, frame, cfg.num_frames, in_test_set,
+            smpl_node.SMPLConfig(cfg.sh_degree, cfg.sh_degree_interval))
     if cfg.use_deformable:
         bundles["DeformableNodes"] = deformable.node_gaussians(
             params["DeformableNodes"], statics["DeformableNodes"],
@@ -248,12 +259,18 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     original_rgb = rgb_gaussians + rgb_sky * (1.0 - opacity)
     outputs["original_rgb"] = original_rgb
 
-    mats_list = bilateral.multiscale_affines(
-        params["Affine"], original_rgb, int(batch["img_idx"]),
-        cfg.guidance_factor,
-        neighbor_idx=neighbor_idx if in_test_set else None)
-    outputs["affine_mats"] = mats_list
-    outputs["rgb"] = bilateral.compose_affines(mats_list, original_rgb)
+    neighbors = neighbor_idx if in_test_set else None
+    if cfg.affine_model == "multiscale_bilateral":
+        mats_list = bilateral.multiscale_affines(
+            params["Affine"], original_rgb, int(batch["img_idx"]),
+            cfg.guidance_factor, neighbor_idx=neighbors)
+        outputs["affine_mats"] = mats_list
+        outputs["rgb"] = bilateral.compose_affines(mats_list, original_rgb)
+    else:
+        mats = bilateral.bilateral_affines(
+            params["Affine"], original_rgb, int(batch["img_idx"]),
+            neighbor_idx=neighbors)
+        outputs["rgb"] = bilateral.apply_affine(mats, original_rgb)
     return outputs
 
 
@@ -269,7 +286,7 @@ def _regs(pairs) -> dict:
 
 def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
                    batch, step: int) -> Dict[str, torch.Tensor]:
-    """The flagship's loss stack, each term weighted."""
+    """The loss stack, each term weighted."""
     if cfg.w_opacity_entropy > 0 or cfg.w_inverse_depth_smoothness > 0:
         raise _later("opacity-entropy and depth-smoothness losses",
                      "the loss-variants slice")
@@ -317,8 +334,12 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
             active, cfg.w_dynamic_region * l1_sum
             / torch.clamp(cnt * 3.0, min=1.0), torch.zeros_like(l1_sum))
 
-    loss["affine"] = cfg.w_affine * bilateral.multiscale_tv_loss(
-        params["Affine"], cfg.ms_grid)
+    if cfg.affine_model == "multiscale_bilateral":
+        loss["affine"] = cfg.w_affine * bilateral.multiscale_tv_loss(
+            params["Affine"], cfg.ms_grid)
+    else:
+        loss["affine"] = cfg.w_affine * bilateral.bilateral_tv_loss(
+            params["Affine"])
 
     if cfg.background_reg:
         regs = _regs(cfg.background_reg)
@@ -327,6 +348,18 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
                                         masks["Background"], step,
                                         regs).items():
             loss[f"Background_{k}"] = v
+    frame = int(batch["frame_idx"])
+    if cfg.use_smpl and cfg.w_smpl_joint_smooth > 0:
+        loss["SMPLNodes_joint_smooth"] = smpl_node.joint_smoothness_loss(
+            params["SMPLNodes"], statics["SMPLNodes"], frame, cfg.num_frames,
+            cfg.w_smpl_joint_smooth)
+    if cfg.use_smpl and cfg.smpl_reg:
+        nn_ind = statics["SMPLNodes"].get("nn_ind")
+        if nn_ind is not None:
+            for k, v in smpl_node.knn_reg_loss(
+                    params["SMPLNodes"], statics["SMPLNodes"], nn_ind, frame,
+                    _regs(cfg.smpl_reg)).items():
+                loss[f"SMPLNodes_{k}"] = v
     return loss
 
 
@@ -504,6 +537,10 @@ def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
     if step % cfg.density.refine_interval == 0 and step > 0:
         full_statics = merge_statics(statics, state.aux)
         for name in gaussian_classes(cfg):
+            if name == "SMPLNodes":
+                # a fixed point count: no densification, culling or
+                # opacity reset, and its Adam moments are kept
+                continue
             params = state.params[name]
             extra_cull = (rigid.out_of_bound_mask(params, full_statics[name])
                           if name in ("RigidNodes", "DeformableNodes")

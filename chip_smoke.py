@@ -4,9 +4,11 @@
 Renders the flagship omnire_ms_bilateral scene at full width on one NVIDIA
 GPU through the port's entry points (eval.render_loop.render_images and
 train.trainer.forward), takes flagship training steps on it
-(train.trainer.train_step), trains, resumes and evaluates a scene from disk
-through the port's CLI (tools.train, tools.eval), and holds every
-hand-written kernel of those paths against its plain PyTorch version.
+(train.trainer.train_step), does the same for omnire_bilateral (SMPL
+pedestrians and the single bilateral grid), trains, resumes and evaluates
+a scene from disk through the port's CLI (tools.train, tools.eval) with
+both presets, and holds every hand-written kernel of those paths against
+its plain PyTorch version.
 Phases, each printed on its own line with its result and elapsed seconds:
 
   env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, PIL, the card
@@ -88,8 +90,30 @@ Phases, each printed on its own line with its result and elapsed seconds:
             step-150 checkpoint, and tools.eval; steps/s, peak memory,
             guards, refinements and kernel launches of the train run, the
             metrics finite
+  bilateral_scene   omnire_bilateral (configs.OMNIRE_BILATERAL_TREE) on the
+            same scene plus 8 SMPL walkers of 6,890 vertices each (55,120
+            Gaussians, each walker in view of one camera, its own random
+            body) and the single grids (240, 12, 8, 16, 16); the
+            intersection capacity, and the walkers' own intersections in
+            each view
+  bilateral_render  a train view and a test view (the walkers' poses
+            slerped, neighbouring grids averaged) through render_images,
+            3 times each, counters from 0: median, spread, one frame
+            profiled
+  bilateral_targets .. bilateral_train_profile   the flagship's training
+            phases on this configuration, with steps 3398-3400 (the SMPL
+            leaves among the compared gradients, the SMPL point count
+            checked each step)
+  bilateral_kernels each kernel of the path against its plain version on
+            the arguments of its first launch in bilateral_train
+  cli_smpl  tools.train --config omnire_bilateral on proto_scene with
+            smpl.model_path=synthetic for CLI_SMPL_STEPS steps (its
+            pedestrian in SMPLNodes), then tools.eval: test PSNR and the
+            human-masked test PSNR
+  total     the run's seconds
 
-Then a `kernels` JSON line, the card's name and power limit as nvidia-smi
+Then a `kernels` JSON line (each entry also with its launches on the
+omnire_bilateral path), the card's name and power limit as nvidia-smi
 gives them, and, last, {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero and prints no result line; so does a run
 without CUDA or outside a checkout of the repository.
@@ -153,6 +177,27 @@ CLI_OVERRIDES = [
     "density.warmup_steps=100", "density.refine_interval=100",
     "trainer.steps_per_dispatch=4", "logging.ckpt_every=150",
     "logging.log_every=50"]
+# omnire_bilateral on the same scene: 8 SMPL walkers of 6,890 vertices
+# (the SMPL mesh's count; each its own random body) and the single grids
+# (240, 12, 8, 16, 16); a train and a test view rendered 3 times each; its
+# training as the flagship's
+SMPL_WALKERS, SMPL_VERTS = 8, 6890
+BILATERAL_VIEWS = (0, 60)
+# the first, the ordinary and the refining step (3398-3400): the fourth
+# step of this synthetic state overflowed the intersection capacity (the
+# state runs away within a few steps, as the flagship's does: ROADMAP.md)
+BILATERAL_TRAIN_IMAGES = TRAIN_IMAGES[:3]
+FRAME_REPEATS = 3
+# the CLI with the omnire_bilateral preset on proto_scene, its pedestrian
+# in SMPLNodes with the synthetic body
+CLI_SMPL_STEPS = 100
+CLI_SMPL_OVERRIDES = [
+    o for o in CLI_OVERRIDES if not o.startswith(
+        ("trainer.max_steps", "res_schedule", "density", "logging"))] + [
+    f"trainer.max_steps={CLI_SMPL_STEPS}", "smpl.model_path=synthetic",
+    "res_schedule.double_steps=50", "res_schedule.downscale_times=1",
+    "density.warmup_steps=50", "density.refine_interval=50",
+    "logging.ckpt_every=1000000", "logging.log_every=50"]
 # runs a module as __main__ with PIL made unimportable
 NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
           "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
@@ -667,15 +712,38 @@ def expand_table(gen, n: int, ntx: int, nty: int, live: int,
     return table, offsets, num_isects
 
 
-def expand_cases(ea, dev, seed: int) -> dict:
-    """The expansion on the main path's inputs and on edge cases, each
-    launched twice: bit-equal between the launches and to its plain
-    version. Returns each case's entries, capacity and largest difference
-    from the plain version (keys and gids as integers, features where
-    not both NaN)."""
+def expand_check(name: str, args) -> dict:
+    """The expansion on one input, launched twice: bit-equal between the
+    launches and to its plain version. Returns its entries, capacity and
+    largest difference from the plain version (keys and gids as
+    integers, features where not both NaN)."""
     import torch
 
     from bilateral_driving_tpu_torch.ops import expand_cuda
+
+    got = [expand_cuda.expand_gather(*args) for _ in range(2)]
+    want = expand_cuda.expand_gather_plain(*args)
+    bits = lambda xs: [x.view(torch.int32) for x in xs]
+    check(all(torch.equal(a, b) for a, b in zip(bits(got[0]), bits(got[1]))),
+          f"expansion differs between two launches: {name}")
+    (k1, g1, f1), (k2, g2, f2) = got[0], want
+    err = max([float((k1.long() - k2.long()).abs().max()),
+               float((g1.long() - g2.long()).abs().max()),
+               float(torch.where(torch.isnan(f1) & torch.isnan(f2),
+                                 0.0, (f1 - f2).abs()).max())]
+              if k1.numel() else [0.0])
+    check(all(torch.equal(a, b) for a, b in zip(bits(got[0]), bits(want))),
+          f"expansion differs from its plain version: {name} (max abs err "
+          f"{err})")
+    return {"gaussians": int(args[1].numel()) - 1,
+            "num_isects": int(args[2]), "capacity": int(args[3]),
+            "max_abs_err": err}
+
+
+def expand_cases(ea, dev, seed: int) -> dict:
+    """The expansion on the main path's inputs and on edge cases, each
+    as expand_check."""
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     ntx, n_tiles = ea[4], ea[5]
@@ -710,27 +778,7 @@ def expand_cases(ea, dev, seed: int) -> dict:
         64 * 64, 3000)
     tab, off, ni = expand_table(gen, 1, ntx, nty, 1, 4, 1 << 20, dev)
     cases["N = 1"] = (tab, off, ni, 128, ntx, n_tiles, 1)
-    out = {}
-    for name, args in cases.items():
-        got = [expand_cuda.expand_gather(*args) for _ in range(2)]
-        want = expand_cuda.expand_gather_plain(*args)
-        bits = lambda xs: [x.view(torch.int32) for x in xs]
-        check(all(torch.equal(a, b) for a, b in zip(bits(got[0]),
-                                                     bits(got[1]))),
-              f"expansion differs between two launches: {name}")
-        (k1, g1, f1), (k2, g2, f2) = got[0], want
-        err = max([float((k1.long() - k2.long()).abs().max()),
-                   float((g1.long() - g2.long()).abs().max()),
-                   float(torch.where(torch.isnan(f1) & torch.isnan(f2),
-                                     0.0, (f1 - f2).abs()).max())]
-                  if k1.numel() else [0.0])
-        check(all(torch.equal(a, b) for a, b in zip(bits(got[0]),
-                                                     bits(want))),
-              f"expansion differs from its plain version: {name} (max abs "
-              f"err {err})")
-        out[name] = {"gaussians": int(args[1].numel()) - 1,
-                     "num_isects": int(args[2]), "capacity": int(args[3]),
-                     "max_abs_err": err}
+    out = {name: expand_check(name, args) for name, args in cases.items()}
     span = cases["one Gaussian over three windows"][1]
     check(int(span[1501] - span[1500]) == 2500
           and int(cases["num_isects above cap"][2])
@@ -811,10 +859,62 @@ def segsum_edge_cases(offs_main, cap_main: int, dev, seed: int) -> dict:
     return out
 
 
-def training(args, cfg, scene, state, statics, dev):
-    """The training phases (targets .. train_times); returns the four
-    training kernels' entries of the `kernels` line and the train run's
-    scan launches per step."""
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by the name of its `kernels` entry;
+    each counts its launches in `.launches`."""
+    from bilateral_driving_tpu_torch.ops import (cubemap_cuda, expand_cuda,
+                                                 rasterize_cuda, scan_cuda,
+                                                 segsum_cuda)
+
+    return {"expand": expand_cuda.expand_gather,
+            "rasterize_fwd": rasterize_cuda.rasterize_fwd,
+            "rasterize_bwd": rasterize_cuda.rasterize_bwd,
+            "segment_sum": segsum_cuda.segment_sum,
+            "segment_sum_rows": segsum_cuda.segment_sum_rows,
+            "splat_grad": cubemap_cuda.splat_grad,
+            "scan": scan_cuda.scan_rows}
+
+
+# the training main path's kernels: its backward sums segments with
+# segment_sum, never segment_sum_rows
+TRAIN_PATH = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum",
+              "splat_grad", "scan")
+
+
+def counts(wrappers) -> dict:
+    return {k: f.launches for k, f in wrappers.items()}
+
+
+def isect_capacity(cfg, state, full_statics, views, width, height, K):
+    """The intersection capacity of a configuration: probe_num_isects of
+    each (batch, in_test_set) view over its live Gaussians (dead slots
+    never get entries), then autotune_capacity with a 10% margin. Returns
+    (capacity, probes)."""
+    from bilateral_driving_tpu_torch.ops import pipeline
+    from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
+    from bilateral_driving_tpu_torch.train import trainer
+
+    probes = []
+    for batch, test in views:
+        merged, _ = trainer.collect_gaussians(
+            cfg, state.params, full_statics, state.masks,
+            batch["camera_to_world"][:3, 3], state.step, batch["frame_idx"],
+            batch["normed_time"], test)
+        live = merged.opacities > 0
+        probes.append(pipeline.probe_num_isects(
+            merged.means[live], merged.quats[live], merged.scales[live],
+            viewmat_from_c2w(batch["camera_to_world"]), K, width, height,
+            pipeline.RasterizeConfig(near_plane=cfg.near_plane,
+                                     far_plane=cfg.far_plane)))
+    return pipeline.autotune_capacity(max(probes), margin=1.1), probes
+
+
+def train_path(prefix, args, cfg, scene, state, statics, dev, images):
+    """The training phases of one configuration on its synthetic state,
+    each named with `prefix`: targets, grads, train (a step on each of
+    `images`, from step TRAIN_STEP0), train_steps, train_profile. Returns
+    (the first main-path arguments of each kernel, the launches of the
+    train run, its steps)."""
     import torch
 
     from bilateral_driving_tpu_torch import configs
@@ -822,35 +922,28 @@ def training(args, cfg, scene, state, statics, dev):
     from bilateral_driving_tpu_torch.ops import (binning, cubemap,
                                                  cubemap_cuda, expand_cuda,
                                                  pipeline, rasterize_cuda,
-                                                 scan_cuda, segsum_cuda)
+                                                 scan_utils, segsum_cuda)
     from bilateral_driving_tpu_torch.train import trainer
 
-    wrappers = {"expand": expand_cuda.expand_gather,
-                "rasterize_fwd": rasterize_cuda.rasterize_fwd,
-                "rasterize_bwd": rasterize_cuda.rasterize_bwd,
-                "segment_sum": segsum_cuda.segment_sum,
-                "segment_sum_rows": segsum_cuda.segment_sum_rows,
-                "splat_grad": cubemap_cuda.splat_grad,
-                "scan": scan_cuda.scan_rows}
-    # the main path's kernels: its backward sums segments with segment_sum
-    path = [k for k in wrappers if k != "segment_sum_rows"]
-
-    def counts():
-        return {k: f.launches for k, f in wrappers.items()}
+    wrappers = kernel_wrappers()
+    smpl_verts = (state.masks["SMPLNodes"].shape[0]
+                  // scene.inst["SMPLNodes"]["trans"].shape[1]
+                  if cfg.use_smpl else 0)
 
     # ---- targets: renders of a second state drawn from another seed
     t0 = time.perf_counter()
     g2 = torch.Generator().manual_seed(args.seed + 1)
-    other, _ = synthetic.random_state(scene, cfg, g2,
-                                      configs.FLAGSHIP_BG_CAPACITY,
-                                      TRAIN_STEP0, device=dev)
+    other, other_statics = synthetic.random_state(
+        scene, cfg, g2, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
+        device=dev, smpl_verts=smpl_verts)
     gpick = torch.Generator(device=dev).manual_seed(args.seed + 2)
     batches = []
     with torch.no_grad():
-        for idx in TRAIN_IMAGES:
+        for idx in images:
             b = synthetic.make_batch(scene, idx)
             o = trainer.forward(cfg, other.params,
-                                trainer.merge_statics(statics, other.aux),
+                                trainer.merge_statics(other_statics,
+                                                      other.aux),
                                 other.masks, b, TRAIN_STEP0)
             alpha = o["opacity"][..., 0]
             hit = (alpha > 0.5) & (torch.rand(alpha.shape, generator=gpick,
@@ -859,9 +952,9 @@ def training(args, cfg, scene, state, statics, dev):
                 scene, idx, torch.clamp(o["rgb"], 0.0, 1.0), 1.0 - alpha,
                 torch.where(hit, o["depth"][..., 0],
                             torch.zeros_like(alpha))))
-    del other
+    del other, other_statics
     torch.cuda.synchronize()
-    phase("targets", t0, images=list(TRAIN_IMAGES),
+    phase(f"{prefix}targets", t0, images=list(images),
           sky_share=[round(float(b["sky_masks"].mean()), 4)
                      for b in batches],
           lidar_points=[int((b["lidar_depth_map"] > 0).sum())
@@ -877,12 +970,12 @@ def training(args, cfg, scene, state, statics, dev):
         cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
         generator=torch.Generator(device=dev).manual_seed(args.seed))
     batch = batches[0]
-    mid = counts()
+    mid = counts(wrappers)
     _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate, batch)
     torch.cuda.synchronize()
-    check(all(counts()[k] > mid[k] for k in path),
+    check(all(counts(wrappers)[k] > mid[k] for k in TRAIN_PATH),
           "the kernel step missed a kernel")
-    mid = counts()
+    mid = counts(wrappers)
 
     def fwd_plain(f, st, c, w, h, residuals=False):
         o = rasterize_cuda.rasterize_fwd_plain(f, st, c, w, h)
@@ -903,7 +996,8 @@ def training(args, cfg, scene, state, statics, dev):
         _, _, _, g_p, gd_p = trainer.compute_grads(cfg, statics, tstate,
                                                    batch)
     torch.cuda.synchronize()
-    check(counts() == mid, "a kernel launched in the plain-version step")
+    check(counts(wrappers) == mid,
+          "a kernel launched in the plain-version step")
     # the texture's gradient, as the step hands it to Adam, in the
     # texture's own layout
     base = tstate.params["Sky"]["base"]
@@ -914,8 +1008,10 @@ def training(args, cfg, scene, state, statics, dev):
     g_k["means2d"], g_p["means2d"] = gd_k, gd_p
     rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
     worst = max(rels, key=rels.get)
-    phase("grads", t0, leaves=len(rels), worst_leaf=worst,
+    zero = sorted(k for k in g_p if not bool(g_p[k].any()))
+    phase(f"{prefix}grads", t0, leaves=len(rels), worst_leaf=worst,
           worst_rel_norm=rels[worst], tolerance=GRADS_RTOL,
+          zero_leaves=zero, sky_base_strides=base_strides,
           rel_norm={k: float(f"{v:.3g}") for k, v in rels.items()
                     if "trunk" not in k},
           norm={k: float(f"{float(g_p[k].norm()):.3g}") for k in g_p
@@ -923,12 +1019,18 @@ def training(args, cfg, scene, state, statics, dev):
     check(rels[worst] <= GRADS_RTOL,
           f"gradient of {worst} differs from the plain step by "
           f"{rels[worst]}")
+    if cfg.use_smpl:
+        check(not any(k.startswith("SMPLNodes/") for k in zero),
+              f"an SMPLNodes leaf has no gradient: {zero}")
     del g_k, g_p, gd_k, gd_p
 
     # ---- train: the training main path, counters from 0
     t0 = time.perf_counter()
     captured = {}
     capture = patched(
+        (pipeline, "expand_cuda", types.SimpleNamespace(
+            expand_gather=capturing(captured, "expand",
+                                    expand_cuda.expand_gather))),
         (pipeline, "rasterize_cuda", types.SimpleNamespace(
             rasterize_fwd=capturing_residuals(captured),
             rasterize_bwd=capturing(captured, "rasterize_bwd",
@@ -938,10 +1040,13 @@ def training(args, cfg, scene, state, statics, dev):
                                   segsum_cuda.segment_sum))),
         (cubemap, "cubemap_cuda", types.SimpleNamespace(
             splat_grad=capturing(captured, "splat_grad",
-                                 cubemap_cuda.splat_grad))))
+                                 cubemap_cuda.splat_grad))),
+        (binning, "scan_utils", types.SimpleNamespace(
+            cumsum=capturing(captured, "scan", scan_utils.cumsum),
+            cummax=scan_utils.cummax)))
     for f in wrappers.values():
         f.launches = 0
-    before = counts()
+    before = counts(wrappers)
     steps, step_ms, saved = [], [], None
     with capture:
         for i, batch in enumerate(batches):
@@ -953,8 +1058,8 @@ def training(args, cfg, scene, state, statics, dev):
             tstate, m = trainer.train_step(cfg, statics, tstate, batch)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t1))
-            now = counts()
-            check(all(now[k] > before[k] for k in path),
+            now = counts(wrappers)
+            check(all(now[k] > before[k] for k in TRAIN_PATH),
                   f"a kernel did not launch in step {step}: {before} -> {now}")
             before = now
             vals = {k: float(v) for k, v in m.items()}
@@ -965,9 +1070,15 @@ def training(args, cfg, scene, state, statics, dev):
             check(vals["isect_overflow"] == 0, f"overflow in step {step}")
             refined = step % cfg.density.refine_interval == 0
             if refined:
+                # SMPLNodes are not refined: their statistics run on
                 check(all(not bool(st.vis_count.any())
-                          for st in tstate.stats.values()),
+                          for name, st in tstate.stats.items()
+                          if name != "SMPLNodes"),
                       f"step {step} did not restart the statistics")
+            if cfg.use_smpl:
+                check(vals["num_points/SMPLNodes"]
+                      == state.masks["SMPLNodes"].shape[0],
+                      f"step {step} changed the SMPL point count")
             steps.append({"step": step, "refined": refined,
                           "loss": round(vals["loss"], 5),
                           "psnr": round(vals["psnr"], 3),
@@ -978,13 +1089,14 @@ def training(args, cfg, scene, state, statics, dev):
                                          if k.startswith("num_points/")},
                           "losses": {k[5:]: round(v, 5) for k, v in
                                      vals.items() if k.startswith("loss/")}})
-    launches = counts()
+    launches = counts(wrappers)
     check(launches["segment_sum_rows"] == 0,
           "segment_sum_rows launched on the main path")
     check(any(s["refined"] for s in steps), "no refining step")
-    check(set(captured) == {"rasterize_fwd", "rasterize_bwd", "segment_sum",
-                            "splat_grad"}, f"captured {sorted(captured)}")
-    phase("train", t0, steps=steps, launches=launches,
+    check(set(captured) == {"expand", "rasterize_fwd", "rasterize_bwd",
+                            "segment_sum", "splat_grad", "scan"},
+          f"captured {sorted(captured)}")
+    phase(f"{prefix}train", t0, steps=steps, launches=launches,
           ms_per_step=[round(x, 2) for x in step_ms])
 
     # ---- train_steps: the ordinary step 3399, each time from the state
@@ -1004,7 +1116,7 @@ def training(args, cfg, scene, state, statics, dev):
     step_median = sorted(ordinary_ms)[len(ordinary_ms) // 2]
     first_ms, refine_ms = step_ms[0], step_ms[[s["refined"] for s in steps]
                                               .index(True)]
-    phase("train_steps", t0, step=TRAIN_STEP0 + 1,
+    phase(f"{prefix}train_steps", t0, step=TRAIN_STEP0 + 1,
           ms=[round(x, 3) for x in ordinary_ms],
           median_ms=round(step_median, 3),
           spread_ms=round(max(ordinary_ms) - min(ordinary_ms), 3),
@@ -1018,8 +1130,21 @@ def training(args, cfg, scene, state, statics, dev):
         lambda: trainer.train_step(cfg, statics, st, batches[1]),
         step_median)
     del st, saved
-    phase("train_profile", t0, step=TRAIN_STEP0 + 1, **profiled)
+    phase(f"{prefix}train_profile", t0, step=TRAIN_STEP0 + 1, **profiled)
+    return captured, launches, steps
 
+
+def training(args, cfg, scene, state, statics, dev):
+    """The flagship's training phases (targets .. train_times); returns
+    the four training kernels' entries of the `kernels` line and the
+    train run's scan launches per step."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import (cubemap_cuda, pipeline,
+                                                 rasterize_cuda, segsum_cuda)
+
+    captured, launches, steps = train_path("", args, cfg, scene, state,
+                                           statics, dev, TRAIN_IMAGES)
     # ---- train_kernels: each training kernel against its plain version
     t0 = time.perf_counter()
     ba = captured["rasterize_bwd"][0]
@@ -1118,7 +1243,6 @@ def training(args, cfg, scene, state, statics, dev):
           splat_grad_row_norms=g3(splat_rows(z_p).norm(dim=1).tolist()),
           splat_grad_max_abs_err=splat_err,
           splat_zero_cotangent_share=splat_zero_share,
-          sky_base_strides=base_strides,
           segment_lengths=segment_lengths,
           segment_edge_cases_row_rel_norm=seg_edges,
           segment_sums_bit_equal_across_launches=True,
@@ -1232,6 +1356,225 @@ def training(args, cfg, scene, state, statics, dev):
     return out, launches["scan"] / len(steps), fwd_train
 
 
+def path_kernels(name: str, captured, dev) -> dict:
+    """Each kernel of a training path against its plain version on the
+    arguments it was first given there: the expansion and the scan
+    bit-exact, the compositing forward as forward_check, the backward,
+    the segment sums and the splat per output row within BWD_RTOL and
+    SUM_RTOL. Returns the errors."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import (cubemap_cuda, rasterize_cuda,
+                                                 scan_cuda, scan_utils,
+                                                 segsum_cuda)
+
+    out = {"expand": expand_check(name, captured["expand"][0])}
+    fa = captured["rasterize_fwd"][0]
+    out["rasterize_fwd"] = forward_check(name, *fa)[0]
+    ba = captured["rasterize_bwd"][0]
+    d_k = rasterize_cuda.rasterize_bwd(*ba)
+    d_p = rasterize_cuda.rasterize_bwd_plain(*ba)
+    rel = max(row_rel_norms(d_k, d_p))
+    check(bool(torch.isfinite(d_k).all()) and rel <= BWD_RTOL,
+          f"compositing backward differs from its plain version: {name} "
+          f"(row relative norm {rel})")
+    out["rasterize_bwd"] = {"row_rel_norm": rel,
+                            "max_abs_err": float((d_k - d_p).abs().max())}
+    d_rows, offs = captured["segment_sum"][0]
+    s_k = segsum_cuda.segment_sum(d_rows, offs)
+    s_p = segsum_cuda.segment_sum_plain(list(d_rows), offs)
+    rel = max(row_rel_norms(s_k, s_p))
+    check(rel <= SUM_RTOL, f"segment_sum differs from its plain version: "
+          f"{name} (row relative norm {rel})")
+    out["segment_sum"] = {"row_rel_norm": rel,
+                          "max_abs_err": float((s_k - s_p).abs().max())}
+    pa = captured["splat_grad"][0]
+    splat_rows = lambda z: z.permute(0, 3, 1, 2).reshape(18, -1)
+    z_k, z_p = cubemap_cuda.splat_grad(*pa), cubemap_cuda.splat_grad_plain(*pa)
+    rel = max(row_rel_norms(splat_rows(z_k), splat_rows(z_p)))
+    check(rel <= SUM_RTOL, f"splat differs from its plain version: {name} "
+          f"(row relative norm {rel})")
+    out["splat_grad"] = {"row_rel_norm": rel,
+                         "max_abs_err": float((z_k - z_p).abs().max())}
+    sc = captured["scan"][0][0]
+    check(torch.equal(scan_utils.cumsum(sc),
+                      scan_cuda.scan_rows_plain(sc[None], "sum")[0]),
+          f"scan differs from its plain version: {name}")
+    out["scan"] = {"elements": int(sc.numel()), "max_abs_err": 0.0}
+    return out
+
+
+def omnire_bilateral(args, dev):
+    """The omnire_bilateral phases (bilateral_scene .. bilateral_kernels).
+    Returns each kernel's launches in the bilateral_render frames and in
+    the bilateral_train steps, and the counts of both."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.eval import render_loop
+    from bilateral_driving_tpu_torch.ops import pipeline
+    from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
+    from bilateral_driving_tpu_torch.tools import common
+    from bilateral_driving_tpu_torch.train import trainer
+    from bilateral_driving_tpu_torch.utils.config import wrap
+
+    # ---- bilateral_scene: the flagship's scene plus the walkers
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(args.seed)
+    scene = synthetic.make_scene(
+        g, num_bg=NUM_BG, num_frames=NUM_FRAMES, num_cams=NUM_CAMS,
+        width=WIDTH, height=HEIGHT, focal=FOCAL, num_rigid=RIGID,
+        rigid_pts=PTS, num_deformable=DEFORM, deformable_pts=PTS,
+        num_smpl=SMPL_WALKERS, device=dev)
+    data = synthetic.SyntheticData(scene)
+    cfg = common.trainer_config_from(wrap(configs.OMNIRE_BILATERAL_TREE),
+                                     data.num_images, NUM_FRAMES, 1.0)
+    state, statics = synthetic.random_state(
+        scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
+        device=dev, smpl_verts=SMPL_VERTS)
+    full_statics = trainer.merge_statics(statics, state.aux)
+    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
+    check(BILATERAL_VIEWS[1] in neighbor_map, "bilateral test view")
+    views = [(data.get_batch(i), i in neighbor_map)
+             for i in BILATERAL_VIEWS + BILATERAL_TRAIN_IMAGES]
+    cap, probes = isect_capacity(cfg, state, full_statics, views, WIDTH,
+                                 HEIGHT, scene.K)
+    cfg = dataclasses.replace(cfg, isect_capacity=cap)
+    # the walkers in view: intersections of the SMPL Gaussians alone
+    smpl_isects = []
+    for batch, test in views:
+        merged, labels = trainer.collect_gaussians(
+            cfg, state.params, full_statics, state.masks,
+            batch["camera_to_world"][:3, 3], state.step, batch["frame_idx"],
+            batch["normed_time"], test)
+        keep = (labels == 2) & (merged.opacities > 0)
+        smpl_isects.append(pipeline.probe_num_isects(
+            merged.means[keep], merged.quats[keep], merged.scales[keep],
+            viewmat_from_c2w(batch["camera_to_world"]), scene.K, WIDTH,
+            HEIGHT, pipeline.RasterizeConfig(near_plane=cfg.near_plane,
+                                             far_plane=cfg.far_plane)))
+    check(all(n > 0 for n in smpl_isects),
+          f"a walker-free view: {smpl_isects}")
+    torch.cuda.synchronize()
+    phase("bilateral_scene", t0, config="omnire_bilateral",
+          smpl_walkers=SMPL_WALKERS, smpl_points=int(
+              state.masks["SMPLNodes"].sum()),
+          smpl_verts_per_body=SMPL_VERTS,
+          grids=list(state.params["Affine"]["grids"].shape),
+          bg_live=int(state.masks["Background"].sum()),
+          rigid_points=int(state.masks["RigidNodes"].sum()),
+          deformable_points=int(state.masks["DeformableNodes"].sum()),
+          views=list(BILATERAL_VIEWS + BILATERAL_TRAIN_IMAGES),
+          probe_num_isects=probes, smpl_num_isects=smpl_isects,
+          isect_capacity=cap)
+
+    # ---- bilateral_render: a train and a test view, each FRAME_REPEATS
+    # times, counters from 0
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    render_path = ("expand", "rasterize_fwd", "scan")
+    for f in wrappers.values():
+        f.launches = 0
+    before = counts(wrappers)
+    frames, frame_ms = [], []
+    for idx in BILATERAL_VIEWS:
+        for _ in range(FRAME_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = render_loop.render_images(cfg, state, statics, data, [idx],
+                                            neighbor_map)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t1))
+            now = counts(wrappers)
+            check(all(now[k] > before[k] for k in render_path),
+                  f"a kernel did not launch for view {idx}")
+            before = now
+        rgb = res["rgbs"][0]
+        check(rgb.shape == (HEIGHT, WIDTH, 3)
+              and all(bool(torch.isfinite(x).all()) for x in
+                      (rgb, res["depths"][0], res["opacities"][0]))
+              and not bool(res["overflow"][0])
+              and int(res["num_isects"][0]) > 0,
+              f"bilateral render of view {idx}: {res['num_isects'][0]}")
+        frames.append({"image": idx, "test_view": idx in neighbor_map,
+                       "num_isects": int(res["num_isects"][0]),
+                       "rgb_mean": round(float(rgb.mean()), 4)})
+    render_launches = counts(wrappers)
+    frame_median = sorted(frame_ms)[len(frame_ms) // 2]
+    prof = device_profile(lambda: render_loop.render_images(
+        cfg, state, statics, data, [BILATERAL_VIEWS[1]], neighbor_map),
+        frame_median)
+    phase("bilateral_render", t0, frames=frames, launches=render_launches,
+          ms_per_frame=[round(x, 3) for x in frame_ms],
+          median_ms=round(frame_median, 3),
+          spread_ms=round(max(frame_ms) - min(frame_ms), 3),
+          profiled_frame_ms=prof.pop("profiled_ms"),
+          device_idle_share_of_median_frame=prof.pop(
+              "device_idle_share_of_median"), **prof,
+          nvidia_smi=nvidia_smi())
+
+    captured, launches, steps = train_path("bilateral_", args, cfg, scene,
+                                           state, statics, dev,
+                                           BILATERAL_TRAIN_IMAGES)
+
+    # ---- bilateral_kernels: each kernel of the path against its plain
+    # version on the path's own inputs
+    t0 = time.perf_counter()
+    errs = path_kernels("omnire_bilateral train inputs", captured, dev)
+    phase("bilateral_kernels", t0, **errs,
+          tolerance={"expand": "bit-exact", "scan": "bit-exact",
+                     "rasterize_fwd": f"atol {RASTER_ATOL} + rtol "
+                                      f"{RASTER_RTOL}",
+                     "rasterize_bwd": f"row relative norm {BWD_RTOL}",
+                     "segment_sum": f"row relative norm {SUM_RTOL}",
+                     "splat_grad": f"row relative norm {SUM_RTOL}"},
+          nvidia_smi=nvidia_smi())
+    return render_launches, len(frame_ms), launches, len(steps)
+
+
+def cli_smpl(dev):
+    """The cli_smpl phase: tools.train --config omnire_bilateral on
+    proto_scene with the synthetic body (its pedestrian in SMPLNodes),
+    then tools.eval; the test PSNR and the human-masked test PSNR. The
+    run directory goes to work_dirs/chip_smoke_cli_smpl and is removed
+    after."""
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_smpl")
+    shutil.rmtree(out, ignore_errors=True)
+    run_dir = os.path.join(out, "smpl")
+    train_s = run_cli("train", "--config", "omnire_bilateral",
+                      "--output_root", out, "--run_name", "smpl",
+                      *CLI_SMPL_OVERRIDES)
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    check(summ["steps"] == CLI_SMPL_STEPS, f"trained {summ['steps']} steps")
+    check(summ["final_points"].get("SMPLNodes", 0) > 0
+          and "DeformableNodes" not in summ["final_points"],
+          f"the pedestrian is not in SMPLNodes: {summ['final_points']}")
+    launched = summ["launches"]
+    check(launched["segment_sum_rows"] == 0 and all(
+        launched[k] >= CLI_SMPL_STEPS for k in TRAIN_PATH),
+          f"a kernel missed training steps of the CLI run: {launched}")
+    check(summ["nonfinite_params_max"] == 0 and summ["overflow_steps"] == 0,
+          f"guards: {summ}")
+    eval_s = run_cli("eval", "--log_dir", run_dir, "--compute_geo")
+    with open(os.path.join(run_dir, "metrics_test.json")) as f:
+        test = {k: v for k, v in json.load(f).items()
+                if isinstance(v, float)}
+    check(all(math.isfinite(test[k]) for k in ("psnr", "human_psnr")),
+          f"metrics_test.json: {test}")
+    phase("cli_smpl", t0, steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          peak_mem_bytes=summ["peak_mem_bytes"],
+          final_points=summ["final_points"], refines=summ["refines"],
+          launches=launched, test_psnr=test["psnr"],
+          test_human_psnr=test["human_psnr"], metrics_test=test,
+          train_s=round(train_s, 2), eval_s=round(eval_s, 2),
+          device=str(dev), nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
+
+
 def run_cli(module: str, *argv) -> float:
     """Run a CLI module of the port in a subprocess with PIL blocked;
     raises with its output's end if it fails. Returns seconds."""
@@ -1325,6 +1668,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1338,7 +1682,6 @@ def main() -> int:
                                                  expand_cuda, pipeline,
                                                  rasterize_cuda, scan_cuda,
                                                  scan_utils)
-    from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
     from bilateral_driving_tpu_torch.tools import kernel_resources
     from bilateral_driving_tpu_torch.train import trainer
 
@@ -1394,22 +1737,11 @@ def main() -> int:
     novel["camera_to_world"] = c2w
     novel["viewdirs"] = synthetic.pixel_viewdirs(HEIGHT, WIDTH, scene.K, c2w)
 
-    probes = []
-    for batch, test in ([(data.get_batch(i), False) for i in TRAIN_VIEWS]
-                        + [(data.get_batch(i), True) for i in TEST_VIEWS]
-                        + [(novel, True)]):
-        merged, _ = trainer.collect_gaussians(
-            cfg, state.params, full_statics, state.masks,
-            batch["camera_to_world"][:3, 3], state.step, batch["frame_idx"],
-            batch["normed_time"], test)
-        # dead slots (zero opacity) never get entries: probe the live ones
-        live = merged.opacities > 0
-        probes.append(pipeline.probe_num_isects(
-            merged.means[live], merged.quats[live], merged.scales[live],
-            viewmat_from_c2w(batch["camera_to_world"]), scene.K, WIDTH,
-            HEIGHT, pipeline.RasterizeConfig(near_plane=cfg.near_plane,
-                                             far_plane=cfg.far_plane)))
-    cap = pipeline.autotune_capacity(max(probes), margin=1.1)
+    cap, probes = isect_capacity(
+        cfg, state, full_statics,
+        [(data.get_batch(i), False) for i in TRAIN_VIEWS]
+        + [(data.get_batch(i), True) for i in TEST_VIEWS] + [(novel, True)],
+        WIDTH, HEIGHT, scene.K)
     cfg = configs.flagship_config(data.num_images, NUM_FRAMES,
                                   isect_capacity=cap)
     torch.cuda.synchronize()
@@ -1682,8 +2014,18 @@ def main() -> int:
     kernels[1]["residuals_at_train_inputs"] = fwd_train
     kernels += train_kernels
 
-    cli(dev)
+    # every kernel's launches on the omnire_bilateral path: render frames
+    # and training steps
+    render_l, n_frames, train_l, n_steps = omnire_bilateral(args, dev)
+    for k in kernels:
+        k["launches_omnire_bilateral"] = {
+            "render": render_l[k["name"]], "frames": n_frames,
+            "train": train_l[k["name"]], "steps": n_steps}
 
+    cli(dev)
+    cli_smpl(dev)
+
+    phase("total", t_start, seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

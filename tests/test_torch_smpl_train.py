@@ -1,0 +1,352 @@
+"""The omnire_bilateral slice as a whole against the JAX package: a small
+omnire_bilateral state with an SMPL pedestrian (made by the JAX package's
+own synthetic set-up and carried across by convert.py), its forward on a
+train and a test view, one plain training step and one refining step
+(which resets every other class's opacities), the scene built from
+tests/fixtures/proto_scene with SMPL on, and a few CPU steps of the CLI
+with the omnire_bilateral preset.
+
+The JAX steps run its default path with `expand_gather_xla` in place of
+its Pallas expansion kernel, as tests/test_torch_train.py explains; the
+forward runs its XLA expansion path (`pallas_expand=False`), as
+tests/test_torch_forward.py explains.
+"""
+import dataclasses
+import functools
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bilateral_driving_tpu.data import scene as jscene
+from bilateral_driving_tpu.data import synthetic as jsynthetic
+from bilateral_driving_tpu.scene import smpl_model as jsmpl_model
+from bilateral_driving_tpu.tools import common as jcommon
+from bilateral_driving_tpu.train import trainer as jtrainer
+from bilateral_driving_tpu.utils import config as jconfig
+from bilateral_driving_tpu_torch import configs, convert
+from bilateral_driving_tpu_torch.scene import smpl_model
+from bilateral_driving_tpu_torch.tools import common
+from bilateral_driving_tpu_torch.tools import train as train_cli
+from bilateral_driving_tpu_torch.train import trainer
+from bilateral_driving_tpu_torch.utils import config
+
+from test_torch_forward import _jax_rasterize_xla
+from test_torch_train import _jax_grads_by_path, _jax_reference_path, _rel
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+BILATERAL_YAML = os.path.join(ROOT, "bilateral_driving_tpu", "configs",
+                              "omnire_bilateral.yaml")
+SCENE = os.path.join(ROOT, "tests", "fixtures", "proto_scene")
+PACK = os.path.join(ROOT, "tests", "fixtures", "proto_scene_pixels.npz")
+W, H, FRAMES, R = 96, 64, 4, 16
+CAP = 2 ** 14
+# the first step is ordinary; the second refines and resets opacities:
+# 3100 % 3000 = 100 = refine_interval
+STEP = 3099
+# PARITY.md's render tolerance and tests/test_torch_train.py's per-leaf
+# gradient tolerance
+PARITY_ATOL = 3e-5
+GRAD_RTOL = 2e-4
+
+
+def _torch_batch(jb):
+    out = {}
+    for k, v in jb.items():
+        v = np.array(v)
+        out[k] = torch.from_numpy(v) if v.ndim else v.item()
+    return out
+
+
+@pytest.fixture(scope="module")
+def run():
+    cfg = jconfig.load_config(BILATERAL_YAML)
+    cfg["data"] = jconfig.ConfigDict(
+        {"width": W, "height": H, "num_frames": FRAMES, "num_bg": 300,
+         "bg_capacity": 512})
+    cfg["trainer"]["envlight_resolution"] = R
+    tcfg, jsc, params, statics, aux, masks = jcommon.build_synthetic_scene(
+        jax.random.key(0), cfg, interpret=True)
+    tcfg = dataclasses.replace(tcfg, isect_capacity=CAP)
+    assert tcfg.use_smpl and tcfg.affine_model == "bilateral"
+    rng = np.random.default_rng(0)
+
+    def perturb(path, x):
+        x = np.asarray(x)
+        name = jax.tree_util.keystr(path)
+        if (x.dtype != np.float32 or "deform_net" in name
+                or "instances" in name or "'means'" in name):
+            return x
+        sd = 0.05 if "sh_rest" in name else 0.1
+        return (x + rng.normal(0, sd, x.shape)).astype(np.float32)
+
+    # every learned array off its initial value: SMPL joint quats, the
+    # grids, SH rest, scales (anisotropic, so the quats get gradients)
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    # the pedestrian's Gaussians e^2 = 7.4 times the JAX set-up's 1 cm:
+    # at 1 cm they project to dots of radius 2 px at this size, whose
+    # gradients (sums of opposite-signed per-pixel terms) the two
+    # frameworks' float32 compositing gives up to 4.4e-4 apart in relative
+    # norm (opacities), 1.2e-4 at 4 cm. Measured worst leaves at factors
+    # e^2, e^2.28, e^2.3 and e^2.32: 1.1e-4 to 1.5e-4. At exactly 10x
+    # (e^2.3026) the refining step's DeformableNodes leaves differ by
+    # 4.2e-3: there one DeformableNodes Gaussian's alpha at one pixel is
+    # 1.5e-8 below the 1/255 gate, and rounding puts it on either side
+    # in the two frameworks (that pixel's rgb differs by 1.4e-4).
+    params["SMPLNodes"]["log_scales"] = (params["SMPLNodes"]["log_scales"]
+                                         + np.float32(2.0))
+    # the pedestrian is invalid in frame 0
+    fv = np.array(statics["SMPLNodes"]["instances_fv"])
+    fv[0] = False
+    statics["SMPLNodes"] = dict(statics["SMPLNodes"],
+                                instances_fv=jnp.asarray(fv))
+    pcfg = common.trainer_config_from(
+        config.wrap(configs.OMNIRE_BILATERAL_TREE), tcfg.num_images,
+        tcfg.num_frames, tcfg.scene_scale)
+    pcfg = dataclasses.replace(pcfg, isect_capacity=CAP,
+                               envlight_resolution=R)
+    jparams = jax.tree.map(jnp.asarray, params)
+    jstate = jtrainer.init_state(jax.random.key(1), tcfg, jparams, masks, aux)
+    jstate = jstate.replace(step=jnp.asarray(STEP, jnp.int32))
+    state = convert.train_state_from_jax(
+        pcfg, params, aux, masks, jstate.stats, STEP, device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    tstatics = convert.tree_from_jax(statics, "cpu")
+
+    batches = []
+    for frame in (1, 2):
+        pixels = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+        sky = (rng.random((H, W)) < 0.3).astype(np.float32)
+        depth = np.where(rng.random((H, W)) < 0.1,
+                         rng.uniform(3, 40, (H, W)), 0).astype(np.float32)
+        batches.append(jsynthetic.make_batch(
+            jsc, frame, jnp.asarray(pixels), jnp.asarray(sky),
+            jnp.asarray(depth)))
+
+    # the test view (frame 2, the pedestrian's pose slerped between frames
+    # 1 and 3, the grids of images 1 and 3 averaged), before any step
+    nbrs = [1, 3]
+    fwd = jax.jit(functools.partial(jtrainer.forward, tcfg, in_test_set=True,
+                                    rasterize_fn=_jax_rasterize_xla))
+    jtest = fwd(jparams, jtrainer.merge_statics(statics, aux), masks,
+                batches[1], jnp.asarray(STEP), neighbor_idx=jnp.asarray(nbrs))
+    with torch.no_grad():
+        ttest = trainer.forward(
+            pcfg, state.params, trainer.merge_statics(tstatics, state.aux),
+            state.masks, _torch_batch(batches[1]), STEP, in_test_set=True,
+            neighbor_idx=nbrs)
+
+    grads_fn = jax.jit(lambda st, b: jtrainer.compute_grads(
+        tcfg, statics, st, b))
+    apply_fn = jax.jit(functools.partial(jtrainer.apply_grads_and_refine,
+                                         tcfg, statics))
+    steps = []
+    for jb in batches:
+        with _jax_reference_path():
+            jg = grads_fn(jstate, jb)
+        tb = _torch_batch(jb)
+        tg = trainer.compute_grads(pcfg, tstatics, state, tb)
+        jstate, jm = apply_fn(jstate, jb, *jg)
+        state, tm = trainer.apply_grads_and_refine(pcfg, tstatics, state, tb,
+                                                   *tg)
+        steps.append(dict(jg=jg, tg=tg, jm=jm, tm=tm, jstate=jstate,
+                          masks={k: v.clone() for k, v in state.masks.items()},
+                          params={k: {n: p.detach().clone()
+                                      for n, p in d.items()
+                                      if isinstance(p, torch.Tensor)}
+                                  for k, d in state.params.items()
+                                  if k != "Affine" and k != "Sky"}))
+        jparams_now = dict(trainer.named_leaves(convert.tree_from_jax(
+            jax.tree.map(np.asarray, jstate.params), "cpu")))
+        with torch.no_grad():
+            for k, p in trainer.named_leaves(state.params):
+                p.copy_(jparams_now[k])
+    return dict(steps=steps, state=state, jtest=jtest, ttest=ttest)
+
+
+def test_forward_matches_jax(run):
+    """The train view (the first step's forward) and the test view, at
+    PARITY.md's atol on rgb and alpha; the pedestrian covers pixels."""
+    s0 = run["steps"][0]
+    for jo, to in ((s0["jg"][2], s0["tg"][2]), (run["jtest"], run["ttest"])):
+        assert int(to["info"]["num_isects"]) == int(jo["info"]["num_isects"])
+        for k in ("rgb", "opacity", "rgb_gaussians", "original_rgb"):
+            np.testing.assert_allclose(to[k].detach().numpy(),
+                                       np.asarray(jo[k]), atol=PARITY_ATOL,
+                                       rtol=1e-4, err_msg=k)
+        labels = to["labels"].numpy()
+        radii = to["info"]["radii"].numpy()
+        assert (radii[labels == 2] > 0).sum() > 30
+
+
+def test_losses_match_jax(run):
+    for i, s in enumerate(run["steps"]):
+        jloss, tloss = s["jg"][1], s["tg"][1]
+        assert set(tloss) == set(jloss)
+        assert "SMPLNodes_joint_smooth" in tloss
+        for k in jloss:
+            np.testing.assert_allclose(float(tloss[k]), float(jloss[k]),
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {i}: {k}")
+        for k in s["jm"]:
+            np.testing.assert_allclose(float(s["tm"][k]), float(s["jm"][k]),
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {i}: {k}")
+    # frame 1: frame - 1 > 0 fails, so no smoothness; frame 2 has it
+    assert float(run["steps"][0]["tg"][1]["SMPLNodes_joint_smooth"]) == 0.0
+    assert float(run["steps"][1]["tg"][1]["SMPLNodes_joint_smooth"]) > 0.0
+
+
+def test_gradients_match_jax_leaf_by_leaf(run):
+    for s in run["steps"]:
+        want = _jax_grads_by_path(s["jg"][3])
+        got = {k: v.numpy() for k, v in s["tg"][3].items()}
+        assert set(got) == set(want)
+        smpl = [k for k in got if k.startswith("SMPLNodes/")]
+        assert {"SMPLNodes/means", "SMPLNodes/instances_quats",
+                "SMPLNodes/smpl_quats", "SMPLNodes/instances_trans",
+                "SMPLNodes/quats"} <= set(smpl)
+        for k in smpl + ["Affine/grids"]:
+            assert np.any(got[k]), k
+        rel = {k: _rel(got[k], want[k]) for k in want}
+        worst = max(rel, key=rel.get)
+        assert rel[worst] < GRAD_RTOL, (worst, rel[worst])
+        assert _rel(s["tg"][4].numpy(), np.asarray(s["jg"][4])) < GRAD_RTOL
+
+
+def test_refine_keeps_smpl_untouched(run):
+    """The refining step resets the other classes' opacities and keeps the
+    pedestrian's point count, opacities (moved by Adam alone, as in JAX)
+    and Adam moments."""
+    s = run["steps"][1]
+    assert float(s["tm"]["refine_dropped"]) == float(s["jm"]["refine_dropped"])
+    for name, m in s["masks"].items():
+        np.testing.assert_array_equal(
+            m.numpy().astype(bool),
+            np.asarray(s["jstate"].masks[name]).astype(bool), name)
+    smpl_pts = run["steps"][0]["masks"]["SMPLNodes"]
+    assert int(s["masks"]["SMPLNodes"].sum()) == int(smpl_pts.sum()) > 0
+    reset = float(np.log(np.float32(0.01 / 0.99)))
+    bg = s["params"]["Background"]["logit_opacities"]
+    assert float(bg[s["masks"]["Background"].bool()].max()) <= reset
+    smpl_op = s["params"]["SMPLNodes"]["logit_opacities"]
+    assert float(smpl_op.max()) > reset + 1.0
+    np.testing.assert_allclose(
+        smpl_op.numpy(),
+        np.asarray(s["jstate"].params["SMPLNodes"]["logit_opacities"]),
+        rtol=1e-5, atol=1e-6)
+    p = run["state"].params["SMPLNodes"]["logit_opacities"]
+    st = run["state"].opt.state[p]
+    assert bool((st["exp_avg_sq"] > 0).all())
+
+
+def test_parameter_groups_follow_the_jax_labels(run):
+    """SMPL's pose tracks share their groups with RigidNodes' and
+    DeformableNodes' (instances_quats, instances_trans), its means have
+    their own (means_smpl), its joint quats theirs (smpl_quats)."""
+    groups = {g["label"]: g["params"] for g in run["state"].opt.param_groups}
+    smpl = run["state"].params["SMPLNodes"]
+    for key, label, n in (("instances_quats", "instances_quats", 3),
+                          ("instances_trans", "instances_trans", 3),
+                          ("means", "means_smpl", 1),
+                          ("smpl_quats", "smpl_quats", 1)):
+        assert len(groups[label]) == n
+        assert any(p is smpl[key] for p in groups[label]), key
+    assert groups["affine"] == [run["state"].params["Affine"]["grids"]]
+
+
+def test_real_scene_routes_the_pedestrian_to_smpl(monkeypatch):
+    """build_real_scene with SMPL on and the synthetic body: the
+    pedestrian becomes SMPLNodes (DeformableNodes is dropped, the scene
+    having no other deformable instance), with the JAX package's poses,
+    betas, validity and template (the port's synthetic body patched to the
+    JAX package's); with SMPL off it stays in DeformableNodes."""
+    over = [f"data.scene_dir={SCENE}", f"data.pixel_pack={PACK}",
+            "data.cameras=[0,1]", "data.num_cams=2", "data.downscale=1",
+            "background_init.capacity=1024",
+            "background_init.num_lidar_samples=400",
+            "background_init.num_near_pts=100",
+            "background_init.num_far_pts=100", "smpl.model_path=synthetic"]
+    jm = jsmpl_model.synthetic_model(jax.random.key(0), num_verts=256)
+    monkeypatch.setattr(smpl_model, "synthetic_model",
+                        lambda *a, **kw: convert.smpl_model_from_jax(jm,
+                                                                     "cpu"))
+    tree = config.apply_dotlist(config.wrap(configs.OMNIRE_BILATERAL_TREE),
+                                over)
+    tcfg, data, params, statics, aux, masks = common.build_real_scene(
+        tree, 0, "cpu")
+    assert tcfg.use_smpl and not tcfg.use_deformable
+    assert set(masks) == {"Background", "RigidNodes", "SMPLNodes"}
+
+    jtree = jconfig.apply_dotlist(jconfig.load_config(BILATERAL_YAML),
+                                  [o for o in over if "pixel_pack" not in o])
+    jdata = jscene.load_scene(SCENE, cameras=(0, 1))
+    jtcfg = jcommon.trainer_config_from(jtree, jdata.num_images,
+                                        jdata.num_frames,
+                                        jdata.scene_radius())
+    jp, js, ja, jmask = jcommon._smpl_from_scene(jax.random.key(0), jtree,
+                                                 jdata, jtcfg)
+    got, gstat = params["SMPLNodes"], statics["SMPLNodes"]
+    eps = np.finfo(np.float32).eps
+    # the root quats come from rotmat_to_quat (2 ulp, its rsqrt), the
+    # body's da-pose from sin and cos
+    for k in ("instances_quats", "smpl_quats"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(jp[k]),
+                                   atol=2 * eps, rtol=0, err_msg=k)
+    np.testing.assert_array_equal(got["instances_trans"].numpy(),
+                                  np.asarray(jp["instances_trans"]))
+    np.testing.assert_array_equal(gstat["instances_fv"].numpy(),
+                                  np.asarray(js["instances_fv"]))
+    assert gstat["instances_fv"].numpy().sum() > 20
+    assert int(masks["SMPLNodes"].sum()) == 256
+    for f in ("j_canonical", "verts_canonical", "a0_inv"):
+        np.testing.assert_allclose(getattr(gstat["template"], f).numpy(),
+                                   np.asarray(getattr(js["template"], f)),
+                                   atol=1e-5, rtol=1e-5, err_msg=f)
+    np.testing.assert_array_equal(gstat["on_mesh_x"].numpy(),
+                                  got["means"].detach().numpy())
+    np.testing.assert_array_equal(aux["SMPLNodes"]["point_ids"].numpy(),
+                                  np.asarray(ja["point_ids"]))
+    for k in ("logit_opacities", "sh_rest", "log_scales"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, err_msg=k)
+    same = [set(a) == set(b) for a, b in zip(
+        gstat["nn_ind"].numpy().reshape(-1, 5),
+        np.asarray(js["nn_ind"]).reshape(-1, 5))]
+    assert np.mean(same) > 0.99
+
+    off = config.apply_dotlist(tree, ["trainer.use_smpl=false"])
+    tcfg, _, _, _, _, masks = common.build_real_scene(off, 0, "cpu")
+    assert not tcfg.use_smpl and tcfg.use_deformable
+    assert "SMPLNodes" not in masks
+
+
+def test_cli_trains_omnire_bilateral(tmp_path):
+    """A few CPU steps of tools.train with the omnire_bilateral preset and
+    the synthetic body, a refine among them: SMPLNodes train, every loss
+    is finite."""
+    out = str(tmp_path)
+    summ = train_cli.main([
+        "--config", "omnire_bilateral", "--device", "cpu", "--output_root",
+        out, "--run_name", "r", f"data.scene_dir={SCENE}",
+        f"data.pixel_pack={PACK}", "data.cameras=[0,1]", "data.num_cams=2",
+        "data.downscale=1", "data.test_image_stride=20",
+        "trainer.envlight_resolution=16", "background_init.capacity=1024",
+        "background_init.num_lidar_samples=400",
+        "background_init.num_near_pts=100", "background_init.num_far_pts=100",
+        "rigid_capacity=256", "render.isect_capacity=4096",
+        "smpl.model_path=synthetic", "trainer.max_steps=4",
+        "density.warmup_steps=1", "density.refine_interval=2",
+        "res_schedule.downscale_times=0", "logging.log_every=1",
+        "logging.metrics_flush_every=1"])
+    assert summ["steps"] == 4
+    assert summ["final_points"]["SMPLNodes"] == 256
+    assert summ["nonfinite_params_max"] == 0
+    with open(os.path.join(out, "r", "metrics.json")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    losses = [v for r in rows for k, v in r.items() if k.startswith("loss")]
+    assert losses and all(np.isfinite(losses))
