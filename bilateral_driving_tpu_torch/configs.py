@@ -3,13 +3,11 @@
 The JAX package reads `bilateral_driving_tpu/configs/*.yaml` through
 PyYAML; the port carries the same trees here, every block of them, so the
 card path needs no YAML parser: FLAGSHIP_TREE is omnire_ms_bilateral.yaml,
-OMNIRE_BILATERAL_TREE omnire_bilateral.yaml (SMPL pedestrians and the
-single 16 x 16 x 8 bilateral grid). The CLI (tools/train.py) starts from a
-preset of PRESETS and applies `key=value` overrides;
-tools.common.trainer_config_from maps a tree onto TrainerConfig.
-tests/test_torch_configs.py, tests/test_torch_cli.py and
-tests/test_torch_smpl.py hold the presets equal to PyYAML's load of the
-YAMLs and to what the JAX package builds from them.
+each other preset a variant of it named after its YAML (PRESETS). The CLI
+(tools/train.py) starts from a preset of PRESETS and applies `key=value`
+overrides; tools.common.trainer_config_from maps a tree onto
+TrainerConfig. tests/test_torch_configs.py holds every preset equal to
+PyYAML's load of its YAML and to what the JAX package builds from it.
 """
 from __future__ import annotations
 
@@ -106,7 +104,7 @@ def _variant(base: dict, changes: dict, drop=()) -> dict:
         if isinstance(value, dict) and isinstance(tree.get(block), dict):
             tree[block].update(value)
         else:
-            tree[block] = value
+            tree[block] = copy.deepcopy(value)
     for path in drop:
         block, key = path.split(".")
         del tree[block][key]
@@ -126,8 +124,69 @@ OMNIRE_BILATERAL_TREE = _variant(
     drop=("sampler.refresh_every", "sampler.refresh_downscale",
           "logging.vis_freq"))
 
+# the YAMLs with SMPLNodes on drop the sampler refresh and vis_freq
+_SMPL_DROP = ("sampler.refresh_every", "sampler.refresh_downscale",
+              "logging.vis_freq")
+
+# omnire.yaml: the appearance-code baseline, per-image affine codes with
+# camera refinement (affine lr the default schedule)
+OMNIRE_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"use_smpl": True, "affine_model": "affine",
+                 "use_camera_opt": True},
+     "losses": {"affine": 1e-5}},
+    drop=_SMPL_DROP)
+
+# omnire_extended_cam.yaml: the same over 40,000 steps
+OMNIRE_EXTENDED_CAM_TREE = _variant(
+    OMNIRE_TREE, {"trainer": {"max_steps": 40000}})
+
+# the neural grids: affine lr 2e-3 -> 1e-4 after a 1,000-step warm-up
+_NEURAL_OPTIM = {"affine": {"lr": 2e-3, "lr_final": 1e-4,
+                            "warmup_steps": 1000}}
+
+# omnire_neuralbilateral.yaml: a 16 x 16 x 8 feature grid and MLP head
+OMNIRE_NEURALBILATERAL_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"use_smpl": True, "affine_model": "neural_bilateral",
+                 "bilateral_grid_shape": [16, 16, 8]},
+     "losses": {"affine": 100.0}, "optim": _NEURAL_OPTIM},
+    drop=_SMPL_DROP)
+
+# omnire_ms_neuralbilateral.yaml: the multi-scale feature pyramid
+OMNIRE_MS_NEURALBILATERAL_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"use_smpl": True,
+                 "affine_model": "multiscale_neural_bilateral"},
+     "losses": {"affine": 10.0}, "optim": _NEURAL_OPTIM},
+    drop=_SMPL_DROP)
+
+# omnire_cp4d.yaml: the rank-5 CP-4D grid
+OMNIRE_CP4D_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"use_smpl": True, "affine_model": "cp4d"},
+     "losses": {"affine": 1e-5}},
+    drop=_SMPL_DROP)
+
+# omnire_ms_bilateral_extended.yaml: the flagship over 40,000 steps with
+# the extended protocol's density control and no sampler refresh
+OMNIRE_MS_BILATERAL_EXTENDED_TREE = _variant(
+    FLAGSHIP_TREE,
+    {"trainer": {"max_steps": 40000},
+     "density": {"densify_grad_thresh": 0.0003,
+                 "densify_size_thresh": 0.002, "reset_alpha_interval": 4000,
+                 "stop_split_at": 20000, "stop_screen_size_at": 5000}},
+    drop=_SMPL_DROP)
+
 PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
-           "omnire_bilateral": OMNIRE_BILATERAL_TREE}
+           "omnire_bilateral": OMNIRE_BILATERAL_TREE,
+           "omnire": OMNIRE_TREE,
+           "omnire_extended_cam": OMNIRE_EXTENDED_CAM_TREE,
+           "omnire_neuralbilateral": OMNIRE_NEURALBILATERAL_TREE,
+           "omnire_ms_neuralbilateral": OMNIRE_MS_NEURALBILATERAL_TREE,
+           "omnire_cp4d": OMNIRE_CP4D_TREE,
+           "omnire_ms_bilateral_extended":
+               OMNIRE_MS_BILATERAL_EXTENDED_TREE}
 
 # background_init.capacity and trainer.max_steps of the same tree
 FLAGSHIP_BG_CAPACITY = FLAGSHIP_TREE["background_init"]["capacity"]

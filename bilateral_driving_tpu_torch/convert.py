@@ -13,7 +13,11 @@ Adam state. It takes the synthetic states of the JAX package and those its
 tools/common.build_real_scene builds from a scene directory: SMPLNodes
 (template, instances_fv, nn_ind, on_mesh_x, point_ids, the pose tracks)
 when SMPL is on, the pedestrians in DeformableNodes when it is off, and
-the single grid's Affine as well as the multi-scale one.
+every appearance model's Affine (the grids, the affine codes' embedding
+and decoder, the neural grids' MLP heads, the CP-4D factor banks) and the
+camera refinements CamPose and CamPosePerturb. An MLP's static `skips`
+leaf is dropped: the port passes skips to encoders.mlp_apply, and every
+MLP carried here has none.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ def deform_net_from_jax(tree, device) -> DeformNetwork:
         deform_scale="scale" in heads)
     if tuple(meta["skips"]) != net.skips:
         raise ValueError(f"deform net skips {meta['skips']} != {net.skips}")
+    net = net.to(torch.from_numpy(np.array(trunk[0]["w"])).dtype)
     with torch.no_grad():
         for lin, layer in zip([*net.trunk, *(net.heads[k] for k in net.heads)],
                               [*trunk, *(heads[k] for k in net.heads)]):
@@ -73,13 +78,24 @@ def smpl_model_from_jax(model, device) -> smpl_model.SMPLModel:
         np.asarray(model.faces, np.int64))
 
 
+def _is_static(x) -> bool:
+    """A JAX static holder (metadata in `.value`, not an array)."""
+    return hasattr(x, "value") and not hasattr(x, "shape")
+
+
 def tree_from_jax(tree, device):
-    """Dicts and lists recurse, arrays become tensors of the same dtype."""
+    """Dicts and lists recurse, arrays become tensors of the same dtype,
+    static leaves are dropped (an MLP's `skips` must be empty)."""
     if hasattr(tree, "a0_inv"):
         return smpl_template_from_jax(tree, device)
     if isinstance(tree, dict):
+        for k, v in tree.items():
+            if _is_static(v) and k == "skips" and tuple(v.value):
+                raise ValueError(f"an MLP with skips {v.value}: the port "
+                                 "keeps skips out of the tree")
         return {k: (deform_net_from_jax(v, device) if k == "deform_net"
-                    else tree_from_jax(v, device)) for k, v in tree.items()}
+                    else tree_from_jax(v, device)) for k, v in tree.items()
+                if not _is_static(v)}
     if isinstance(tree, (list, tuple)):
         return [tree_from_jax(v, device) for v in tree]
     return torch.from_numpy(np.array(tree)).to(device)

@@ -1,5 +1,5 @@
 """Rotation math on tensors: port of bilateral_driving_tpu/core/transforms.py
-(the functions the render path and the SMPL bodies use).
+(the functions the render path, the SMPL bodies and camera refinement use).
 
 Quaternions are (w, x, y, z). Every function broadcasts over leading batch
 dimensions and stays finite at the origin, in both passes.
@@ -121,3 +121,20 @@ def axis_angle_to_quat(aa: torch.Tensor) -> torch.Tensor:
     half = 0.5 * safe_norm(aa)
     return torch.cat([torch.cos(half), torch.sin(half) * safe_normalize(aa)],
                      dim=-1)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D rotation (Zhou et al.) -> (..., 3, 3) matrix by
+    Gram-Schmidt; the rows are the basis vectors."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = safe_normalize(a1)
+    b2 = safe_normalize(a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def se3_compose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) and translation (..., 3) -> (..., 4, 4)."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(*R.shape[:-2], 1, 4)
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)

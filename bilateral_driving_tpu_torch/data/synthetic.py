@@ -20,7 +20,7 @@ import torch
 from ..core import sh as sh_lib
 from ..models import bilateral, deform, encoders
 from ..scene import smpl_model
-from ..train import setup
+from ..train import setup, trainer
 from ..train.trainer import SceneState
 
 CAM_YAWS_DEG = (0.0, 55.0, -55.0, 110.0, -110.0, 180.0)
@@ -210,8 +210,10 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
                  bg_capacity: int, step: int, device="cuda",
                  smpl_verts: int = 6890):
     """Scene parameters of every class of `cfg` drawn from `generator`: the
-    multi-scale or the single bilateral grids as cfg.affine_model says,
-    and with cfg.use_smpl SMPLNodes of the scene's walkers (bodies of
+    appearance model cfg.affine_model names (grids near the identity, the
+    other models' arrays moved off their zero or random init), the camera
+    refinements cfg asks for (pose embeddings near zero), and with
+    cfg.use_smpl SMPLNodes of the scene's walkers (bodies of
     `smpl_verts` vertices, the SMPL mesh's count by default), drawn last.
     Returns (SceneState, statics)."""
     g = generator
@@ -245,13 +247,24 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
     if cfg.affine_model == "bilateral":
         affine = bilateral.init_bilateral(
             cfg.num_images, *cfg.bilateral_grid_shape, device=device)
-        grids = [affine["grids"]]
-    else:
+        arrays = [affine["grids"]]
+    elif cfg.affine_model == "multiscale_bilateral":
         affine = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
                                            device)
-        grids = [level["grids"] for level in affine["levels"]]
-    for grid in grids:
-        grid += 0.02 * torch.randn(grid.shape, generator=g).to(device)
+        arrays = [level["grids"] for level in affine["levels"]]
+    else:
+        # the other appearance models and the camera refinements, every
+        # array moved off its initial value (zero codes, decoders, heads,
+        # feature grids and pose embeddings give no gradient to some leaves)
+        models = setup.appearance_models(cfg, device, g)
+        affine = models.pop("Affine")
+        arrays = [p for _, p in trainer.named_leaves(affine)]
+        for name, model in models.items():
+            model["embeds"] += 1e-3 * torch.randn(
+                model["embeds"].shape, generator=g).to(device)
+            params[name] = model
+    for x in arrays:
+        x += 0.02 * torch.randn(x.shape, generator=g).to(device)
     params["Affine"] = affine
     if cfg.use_smpl:
         (params["SMPLNodes"], statics["SMPLNodes"], aux["SMPLNodes"],

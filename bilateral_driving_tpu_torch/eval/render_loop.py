@@ -3,12 +3,13 @@
 waits for the render-CLI slice).
 
 Test images (keys of `neighbor_map`) render with interpolated instance
-poses and bilateral affines averaged over their neighbouring training
-images; the rest render as training views. With metrics on, each image
-gets the reference's per-image metric set (eval/metrics.py), optionally
-the geometry metrics against the lidar depth, after an optional
-least-squares colour correction; per-class renders zero every other class's
-opacities.
+poses, bilateral affines (and the neural grids' features) averaged over
+their neighbouring training images, the affine codes' mean embedding and
+no camera refinement; the rest render as training views. With metrics
+on, each image gets the reference's per-image metric set
+(eval/metrics.py), optionally the geometry metrics against the lidar
+depth, after an optional least-squares colour correction; per-class
+renders zero every other class's opacities.
 """
 from __future__ import annotations
 

@@ -1,18 +1,23 @@
-"""Bilateral-grid appearance: port of the single-scale and multi-scale
-paths of bilateral_driving_tpu/models/bilateral.py, with their
-total-variation losses.
+"""Bilateral-grid appearance: port of
+bilateral_driving_tpu/models/bilateral.py.
 
 Per-image grids of 3x4 colour affines, (N, 12, L, H, W), identity at init,
 sliced trilinearly at (x, y, gray(rgb)) with `grid_sample` semantics
 (align_corners=True, border padding). The single grid (16 x 16 x 8 by
 default) is sliced at full resolution; each multi-scale level is sliced at
-downsampled guidance, upsampled back to full size and applied in turn.
+downsampled guidance, upsampled back to full size and applied in turn,
+with an optional cycle-consistency loss (`inverse_loss`). The neural grids
+hold zero-initialised feature grids whose slices a shared MLP head per
+level maps to affines that the trainer applies residually; the CP-4D grid
+is a rank-R factorisation over (x, y, z, gray) into four 1-D factor banks.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+
+from . import encoders
 
 RGB2GRAY = (0.299, 0.587, 0.114)      # BT601
 
@@ -92,20 +97,21 @@ def uv_grid(h: int, w: int, dtype=torch.float32, device="cuda"):
     return torch.stack([gx, gy], dim=-1)
 
 
-def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+def _linear_weights(n_in: int, n_out: int, device,
+                    dtype=torch.float32) -> torch.Tensor:
     """(n_in, n_out) weights of `jax.image.resize(method="linear")` along one
     axis: a triangle kernel widened by the factor when downsampling
     (antialiasing), normalized per output sample."""
     scale = n_out / n_in
     inv = 1.0 / scale
     kernel_scale = max(inv, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+    sample = (torch.arange(n_out, dtype=dtype, device=device)
               + 0.5) * inv - 0.5
     x = torch.abs(sample[None, :] - torch.arange(
-        n_in, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+        n_in, dtype=dtype, device=device)[:, None]) / kernel_scale
     w = torch.clamp(1.0 - torch.abs(x), min=0.0)
     total = torch.sum(w, dim=0, keepdim=True)
-    eps = 1000.0 * torch.finfo(torch.float32).eps
+    eps = 1000.0 * torch.finfo(dtype).eps
     w = torch.where(torch.abs(total) > eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
@@ -120,10 +126,10 @@ def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     out = img
     if h != H:
         out = torch.einsum("hwc,hy->ywc", out,
-                           _linear_weights(H, h, img.device))
+                           _linear_weights(H, h, img.device, img.dtype))
     if w != W:
         out = torch.einsum("ywc,wx->yxc", out,
-                           _linear_weights(W, w, img.device))
+                           _linear_weights(W, w, img.device, img.dtype))
     return out
 
 
@@ -207,12 +213,160 @@ def total_variation_loss(grids: torch.Tensor) -> torch.Tensor:
 
 def multiscale_tv_loss(params, grid_sizes: Sequence[Sequence[int]] =
                        DEFAULT_MS_GRID) -> torch.Tensor:
-    """Per-level TV weighted 0.5 sqrt(X Y W)."""
+    """Per-level TV weighted 0.5 sqrt(X Y W), of the grids of a pyramid,
+    multi-scale or neural (the JAX package's multiscale_neural_tv_loss)."""
     loss = 0.0
     for level, (gx, gy, gw) in zip(params["levels"], grid_sizes):
         loss = loss + total_variation_loss(level["grids"]) * (
             0.5 * (gx * gy * gw) ** 0.5)
     return loss
+
+
+def inverse_loss(mats_list, gt_rgb: torch.Tensor,
+                 pre_affine_rgb: torch.Tensor) -> torch.Tensor:
+    """Cycle consistency: invert the composed homogeneous affine of the
+    levels, apply it to the ground truth, L1 against the render before
+    the affines."""
+    h, w = gt_rgb.shape[:2]
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=gt_rgb.dtype,
+                          device=gt_rgb.device).expand(h, w, 1, 4)
+    mat = torch.eye(4, dtype=gt_rgb.dtype, device=gt_rgb.device).expand(
+        h, w, 4, 4)
+    for mats in mats_list:
+        mat = torch.cat([mats, bottom], dim=-2) @ mat
+    inv = torch.linalg.inv(mat)
+    gt_t = apply_affine(inv[..., :3, :], gt_rgb)
+    return torch.mean(torch.abs(gt_t - pre_affine_rgb))
+
+
+def _guidance(rgb: torch.Tensor) -> torch.Tensor:
+    """(h, w, 3) slice coordinates (x, y, gray) in [-1, 1] of an image."""
+    h, w, _ = rgb.shape
+    xy = uv_grid(h, w, rgb.dtype, rgb.device)
+    return torch.cat([xy * 2.0 - 1.0, rgb_to_gray(rgb)[..., None]], dim=-1)
+
+
+def _features(grids: torch.Tensor, coords: torch.Tensor, img_idx: int,
+              neighbor_idx: Sequence[int] | None) -> torch.Tensor:
+    """Image img_idx's grid sliced at coords, or the mean of the
+    neighbours' slices."""
+    if neighbor_idx is None:
+        return grid_sample_3d(grids[img_idx], coords)
+    return torch.stack([grid_sample_3d(grids[int(i)], coords)
+                        for i in neighbor_idx]).mean(dim=0)
+
+
+def init_neural_bilateral(generator: torch.Generator, num_images: int,
+                          grid_x: int, grid_y: int, grid_w: int,
+                          feature_dim: int, hidden_dim: int, device="cuda"):
+    """Zero feature grids (N, F, L, H, W) and a shared MLP head mapping a
+    sliced feature to a 3x4 affine, its last layer zero."""
+    return {
+        "grids": torch.zeros((num_images, feature_dim, grid_w, grid_y,
+                              grid_x), device=device),
+        "head": encoders.mlp_init(generator, feature_dim, 12, 2, hidden_dim,
+                                  zero_init_last=True, device=device),
+    }
+
+
+def neural_bilateral_affines(params, rgb: torch.Tensor, img_idx: int,
+                             neighbor_idx: Sequence[int] | None = None
+                             ) -> torch.Tensor:
+    """(H, W, 3, 4) residual affines from the sliced features through the
+    head; on test views (`neighbor_idx`) the neighbours' features are
+    averaged."""
+    h, w, _ = rgb.shape
+    feats = _features(params["grids"], _guidance(rgb), img_idx,
+                      neighbor_idx)
+    return encoders.mlp_apply(params["head"], feats).reshape(h, w, 3, 4)
+
+
+def init_multiscale_neural(generator: torch.Generator, num_images: int,
+                           grid_sizes: Sequence[Sequence[int]] =
+                           DEFAULT_MS_GRID, feature_dim: int = 8,
+                           hidden_dim: int = 64, device="cuda"):
+    """A pyramid of zero feature grids, each level with its own head."""
+    return {"levels": [
+        {"grids": torch.zeros((num_images, feature_dim, gw, gy, gx),
+                              device=device),
+         "head": encoders.mlp_init(generator, feature_dim, 12, 2, hidden_dim,
+                                   zero_init_last=True, device=device)}
+        for gx, gy, gw in grid_sizes]}
+
+
+def multiscale_neural_affines(params, rgb: torch.Tensor, img_idx: int,
+                              guidance_factor: Sequence[int] =
+                              DEFAULT_GUIDANCE_FACTOR,
+                              neighbor_idx: Sequence[int] | None = None
+                              ) -> torch.Tensor:
+    """(H, W, 3, 4) residual affines: the sum over levels of each level's
+    head applied to its slice at downsampled guidance, upsampled to full
+    size."""
+    h, w, _ = rgb.shape
+    total = torch.zeros((h, w, 12), dtype=rgb.dtype, device=rgb.device)
+    for level, factor in zip(params["levels"], guidance_factor):
+        hd, wd = h // factor, w // factor
+        rgb_low = resize_bilinear(rgb, hd, wd) if factor != 1 else rgb
+        feats = _features(level["grids"], _guidance(rgb_low), img_idx,
+                          neighbor_idx)
+        mats = encoders.mlp_apply(level["head"], feats)
+        if (hd, wd) != (h, w):
+            mats = resize_bilinear(mats, h, w)
+        total = total + mats
+    return total.reshape(h, w, 3, 4)
+
+
+def init_cp4d(generator: torch.Generator, rank: int = 5, grid_x: int = 16,
+              grid_y: int = 16, grid_z: int = 16, grid_w: int = 8,
+              out_dim: int = 12, device="cuda"):
+    """Four (rank, size, out_dim) factor banks whose rank-0 products are
+    the identity affine everywhere (fx0 = fy0 = fz0 = 1, fw0 = identity);
+    the other ranks start at 1e-3 noise."""
+    def factor(size):
+        f = torch.zeros((rank, size, out_dim))
+        f[0] = 1.0
+        f[1:] += 1e-3 * torch.randn((rank - 1, size, out_dim),
+                                    generator=generator,
+                                    device=generator.device).cpu()
+        return f
+
+    banks = {k: factor(n) for k, n in (("fx", grid_x), ("fy", grid_y),
+                                       ("fz", grid_z), ("fw", grid_w))}
+    banks["fw"][0] = torch.tensor([1.0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0])
+    return {k: v.to(device) for k, v in banks.items()}
+
+
+def _lerp_1d(bank: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
+    """bank (R, S, D) sampled at coord (...,) in [-1, 1], align-corners,
+    the lower index clamped at S - 2: (..., R, D)."""
+    s = bank.shape[1]
+    pix = torch.clamp((coord + 1.0) * 0.5 * (s - 1), 0.0, s - 1)
+    i0 = torch.clamp(torch.floor(pix), 0, max(s - 2, 0)).to(torch.int64)
+    w = (pix - i0.to(pix.dtype))[..., None, None]
+    lo = torch.movedim(bank[:, i0], 0, -2)
+    hi = torch.movedim(bank[:, torch.clamp(i0 + 1, 0, s - 1)], 0, -2)
+    return lo * (1 - w) + hi * w
+
+
+def cp4d_affines(params, xyz: torch.Tensor, rgb: torch.Tensor
+                 ) -> torch.Tensor:
+    """(..., 3, 4) affines at xyz (..., 3) in [-1, 1] and gray(rgb): the
+    sum over ranks of the four factors' product."""
+    vx = _lerp_1d(params["fx"], xyz[..., 0])
+    vy = _lerp_1d(params["fy"], xyz[..., 1])
+    vz = _lerp_1d(params["fz"], xyz[..., 2])
+    vw = _lerp_1d(params["fw"], rgb_to_gray(rgb))
+    mats = torch.sum(vx * vy * vz * vw, dim=-2)
+    return mats.reshape(*xyz.shape[:-1], 3, 4)
+
+
+def cp4d_tv_loss(params) -> torch.Tensor:
+    """Mean squared neighbour difference along each bank's grid axis."""
+    tv = 0.0
+    for k in ("fx", "fy", "fz", "fw"):
+        d = torch.diff(params[k], dim=1)
+        tv = tv + torch.mean(d * d)
+    return tv
 
 
 def color_correct(img: torch.Tensor, ref: torch.Tensor, num_iters: int = 5,

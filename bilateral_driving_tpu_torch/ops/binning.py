@@ -88,7 +88,9 @@ def pack_keys(tile, depths_exp, n_tiles: int, entry_valid):
     """One packed 31-bit sort key: tile | truncated positive-float depth
     bits (positive float bit patterns order like the floats)."""
     tb = tile_bits(n_tiles)
-    depth_bits = torch.clamp(depths_exp, min=0.0).view(torch.int32)
+    # the bits of the float32 depth, whatever the features' dtype
+    depth_bits = torch.clamp(depths_exp.to(torch.float32),
+                             min=0.0).view(torch.int32)
     key = (tile << (31 - tb)) | (depth_bits >> tb)
     return torch.where(entry_valid, key, torch.full_like(key, INT_MAX))
 

@@ -38,8 +38,7 @@ def splat_grad_plain(face, u0, v0, fu, fv, g, res: int) -> torch.Tensor:
     face, u0, v0 = face[keep].long(), u0[keep].long(), v0[keep].long()
     fu, fv, g = fu[keep][:, None], fv[keep][:, None], g[keep]
     cell = (face * res + v0) * res + u0
-    acc = torch.zeros((6 * res * res, 3), dtype=torch.float32,
-                      device=g.device)
+    acc = torch.zeros((6 * res * res, 3), dtype=g.dtype, device=g.device)
     acc.index_add_(0, cell, g * (1 - fv) * (1 - fu))
     acc.index_add_(0, cell + 1, g * (1 - fv) * fu)
     acc.index_add_(0, cell + res, g * fv * (1 - fu))

@@ -66,7 +66,8 @@ def checkpoint_slots(starts, counts, cap: int):
     return off.to(torch.int32), cap // CHUNK + starts.shape[0]
 
 
-def _tiling(starts, counts, width: int, height: int) -> Tiling:
+def _tiling(starts, counts, width: int, height: int,
+            dtype=torch.float32) -> Tiling:
     ntx, nty = num_tiles(width, height)
     dev = starts.device
     start, end, fc, _ = _chunk_counts(starts, counts)
@@ -74,10 +75,10 @@ def _tiling(starts, counts, width: int, height: int) -> Tiling:
     t = torch.arange(ntx * nty, device=dev)
     return Tiling(
         start, end, fc,
-        (p % TILE).float() + 0.5,
-        torch.div(p, TILE, rounding_mode="floor").float() + 0.5,
-        ((t % ntx) * TILE).float(),
-        (torch.div(t, ntx, rounding_mode="floor") * TILE).float())
+        (p % TILE).to(dtype) + 0.5,
+        torch.div(p, TILE, rounding_mode="floor").to(dtype) + 0.5,
+        ((t % ntx) * TILE).to(dtype),
+        (torch.div(t, ntx, rounding_mode="floor") * TILE).to(dtype))
 
 
 def _chunk_alpha(feats, tl: Tiling, act, c: int):
@@ -94,7 +95,8 @@ def _chunk_alpha(feats, tl: Tiling, act, c: int):
              + f[3] * dx * dy - f[5])
     alpha = torch.clamp(torch.exp(-sigma), max=MAX_ALPHA)
     alpha = torch.where((alpha >= ALPHA_THRESH) & inm[..., None], alpha,
-                        torch.zeros((), device=feats.device))
+                        torch.zeros((), dtype=alpha.dtype,
+                                    device=feats.device))
     return gidx, f, inm, dx, dy, alpha
 
 
@@ -118,14 +120,14 @@ def rasterize_fwd_plain(feats, starts, counts, width: int,
     (entry, pixel) pairs whose alpha passed the 1/255 gate."""
     ntx, nty = num_tiles(width, height)
     n_tiles = ntx * nty
-    dev = feats.device
-    tl = _tiling(starts, counts, width, height)
+    dev, dt = feats.device, feats.dtype
+    tl = _tiling(starts, counts, width, height, dt)
     nch = _chunk_counts(starts, counts)[3]
     ckpt_off, slots = checkpoint_slots(starts, counts, feats.shape[1])
-    ckpt = torch.zeros((slots, PIX), device=dev)
+    ckpt = torch.zeros((slots, PIX), dtype=dt, device=dev)
 
-    trans = torch.ones((n_tiles, PIX), device=dev)
-    acc = torch.zeros((n_tiles, NFEAT - 6, PIX), device=dev)
+    trans = torch.ones((n_tiles, PIX), dtype=dt, device=dev)
+    acc = torch.zeros((n_tiles, NFEAT - 6, PIX), dtype=dt, device=dev)
     n_live = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     n_blend = torch.zeros((), dtype=torch.int64, device=dev)
     live = nch > 0
@@ -156,10 +158,10 @@ def rasterize_bwd_plain(feats, starts, counts, n_live, ckpt_off, ckpt, gout,
     d_alpha = T G - (sum over later entries of w G) / max(1 - alpha, 0.001)
     gated to 0 < alpha < 0.999, then through sigma to the features.
     Entries outside every live chunk stay 0."""
-    dev = feats.device
-    tl = _tiling(starts, counts, width, height)
+    dev, dt = feats.device, feats.dtype
+    tl = _tiling(starts, counts, width, height, dt)
     nl = n_live.long()
-    dfeats = torch.zeros((NFEAT, feats.shape[1]), device=dev)
+    dfeats = torch.zeros((NFEAT, feats.shape[1]), dtype=dt, device=dev)
     carry = torch.zeros_like(gout[:, 0])                   # (n_tiles, PIX)
     top = int(nl.max()) if nl.numel() else 0
     for c in range(top - 1, -1, -1):
@@ -180,7 +182,7 @@ def rasterize_bwd_plain(feats, starts, counts, n_live, ckpt_off, ckpt, gout,
         one_m = torch.clamp(1.0 - alpha, min=1.0 - MAX_ALPHA)
         d_alpha = trans * G - suffix / one_m
         gate = (alpha > 0.0) & (alpha < MAX_ALPHA)
-        zero = torch.zeros((), device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
         ds = torch.where(gate, -(alpha * d_alpha), zero)
         a, b, cq = f[2], f[3], f[4]
         # selected, not multiplied by the gate: a pair the gate drops adds

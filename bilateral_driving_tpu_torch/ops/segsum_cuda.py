@@ -41,7 +41,7 @@ def segment_sum_plain(rows, offsets, n_out: int | None = None,
     dev = offsets.device
     seg = segment_ids(offsets, rows[0].shape[0])
     keep = seg >= 0
-    out = torch.zeros((n_out, n), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_out, n), dtype=rows[0].dtype, device=dev)
     data = torch.stack(list(rows))[:, keep]
     out[row0:row0 + len(rows)].index_add_(1, seg[keep], data)
     return out

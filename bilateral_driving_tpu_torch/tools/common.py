@@ -212,7 +212,10 @@ def build_real_scene(cfg: ConfigDict, seed: int = 0, device="cuda"):
                                data.scene_radius(),
                                scene_origin=0.5 * (aabb[0] + aabb[1]))
     gen = torch.Generator().manual_seed(seed)
-    params = setup.build_models(tcfg, device)
+    # the appearance and camera models draw from a generator of their own,
+    # so the Gaussians' draws are the same for every appearance model
+    params = setup.build_models(tcfg, device,
+                                torch.Generator().manual_seed(seed + 1))
     masks, aux, statics = {}, {}, {}
 
     bg, masks["Background"], statics["Background"] = _background_from_scene(

@@ -42,8 +42,8 @@ def _filter2d(img, size: int = 11, sigma: float = 1.5):
     smaller than the window shrink it to the image."""
     h, w = img.shape[:2]
     size = min(size, h, w)
-    ah = torch.from_numpy(_ssim_band_np(h, size, sigma)).to(img.device)
-    aw = torch.from_numpy(_ssim_band_np(w, size, sigma)).to(img.device)
+    ah, aw = (torch.from_numpy(_ssim_band_np(n, size, sigma)).to(
+        device=img.device, dtype=img.dtype) for n in (h, w))
     out = torch.einsum("ih,hwc->iwc", ah, img)
     return torch.einsum("jw,iwc->ijc", aw, out)
 

@@ -1,7 +1,8 @@
 """Scene and model construction from a scene's initial points: port of
 bilateral_driving_tpu/train/setup.py for the vanilla Background,
-RigidNodes, SMPLNodes, DeformableNodes, EnvLight and the single and
-multi-scale bilateral grids.
+RigidNodes, SMPLNodes, DeformableNodes, EnvLight, every appearance model
+(affine codes, the single, multi-scale, neural and CP-4D bilateral grids)
+and camera refinement.
 
 Every random draw (quaternions, colours, instance codes, the deformation
 network) comes from an explicit torch.Generator; the PVG and deformgs
@@ -14,7 +15,8 @@ import math
 import torch
 
 from ..core import sampling, sh as sh_lib
-from ..models import bilateral, deform, encoders, sky as sky_mod
+from ..models import affine as affine_mod
+from ..models import bilateral, camera_opt, deform, encoders, sky as sky_mod
 from ..scene import smpl_model, smpl_node
 
 INIT_OPACITY = 0.1
@@ -155,24 +157,50 @@ def build_smpl(generator, model: smpl_model.SMPLModel, betas,
     return params, statics, {"point_ids": point_ids}, mask
 
 
-def build_models(cfg, device="cuda"):
+def build_models(cfg, device="cuda",
+                 generator: torch.Generator | None = None):
     """The non-Gaussian models keyed as the trainer expects: the EnvLight
-    sky and the multi-scale or single bilateral grids."""
+    sky, and appearance_models."""
     if cfg.sky_model != "envlight":
         raise NotImplementedError(f"sky_model={cfg.sky_model!r} is not "
                                   "ported yet: the sky-MLP slice")
-    if cfg.use_camera_opt or cfg.use_camera_perturb:
-        raise NotImplementedError("camera refinement is not ported yet: "
-                                  "the camera-refinement slice")
-    if cfg.affine_model == "multiscale_bilateral":
-        affine = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
-                                           device)
-    elif cfg.affine_model == "bilateral":
-        affine = bilateral.init_bilateral(
-            cfg.num_images, *cfg.bilateral_grid_shape, device=device)
-    else:
-        raise NotImplementedError(f"affine_model={cfg.affine_model!r} is "
-                                  "not ported yet: the appearance-variants "
-                                  "slice")
     return {"Sky": sky_mod.init_envlight(cfg.envlight_resolution, device),
-            "Affine": affine}
+            **appearance_models(cfg, device, generator)}
+
+
+def appearance_models(cfg, device="cuda",
+                      generator: torch.Generator | None = None):
+    """The appearance model of cfg.affine_model ("Affine") and the camera
+    refinements ("CamPose" at zero, "CamPosePerturb" drawn with std 0.01).
+    The MLPs, the CP-4D noise and the perturbation are drawn from
+    `generator` (a CPU generator seeded 0 by default)."""
+    g = torch.Generator().manual_seed(0) if generator is None else generator
+    out = {}
+    aff = cfg.affine_model
+    if aff == "multiscale_bilateral":
+        out["Affine"] = bilateral.init_multiscale(cfg.num_images, cfg.ms_grid,
+                                                  device)
+    elif aff == "bilateral":
+        out["Affine"] = bilateral.init_bilateral(
+            cfg.num_images, *cfg.bilateral_grid_shape, device=device)
+    elif aff == "affine":
+        out["Affine"] = affine_mod.init_affine(g, cfg.num_images,
+                                               device=device)
+    elif aff == "neural_bilateral":
+        out["Affine"] = bilateral.init_neural_bilateral(
+            g, cfg.num_images, *cfg.bilateral_grid_shape, feature_dim=8,
+            hidden_dim=64, device=device)
+    elif aff == "multiscale_neural_bilateral":
+        out["Affine"] = bilateral.init_multiscale_neural(
+            g, cfg.num_images, cfg.ms_grid, device=device)
+    elif aff == "cp4d":
+        out["Affine"] = bilateral.init_cp4d(g, device=device)
+    elif aff != "none":
+        raise ValueError(f"unknown affine_model {aff!r}")
+    if cfg.use_camera_opt:
+        out["CamPose"] = camera_opt.init_camera_opt(g, cfg.num_images,
+                                                    device=device)
+    if cfg.use_camera_perturb:
+        out["CamPosePerturb"] = camera_opt.init_camera_opt(
+            g, cfg.num_images, std=0.01, device=device)
+    return out

@@ -1,9 +1,10 @@
 """Scene trainer: port of bilateral_driving_tpu/train/trainer.py for the
-flagship configuration (configs.flagship_config) and omnire_bilateral
-(SMPL pedestrians, the single bilateral grid).
+vanilla background with rigid, SMPL and deformable nodes, the EnvLight sky,
+every appearance model and camera refinement (configs.PRESETS).
 
-forward = per-class Gaussians -> concat -> tiled rasterize -> EnvLight sky
-compositing -> bilateral appearance (multi-scale or single). A training
+forward = camera refinement -> per-class Gaussians -> concat -> tiled
+rasterize -> EnvLight sky compositing -> appearance (affine codes, or the
+single, multi-scale, neural or CP-4D bilateral grids). A training
 step is compute_grads (forward, the loss stack and autograd, with a zeros
 `means2d_dummy` whose gradient is the per-Gaussian screen gradient) then
 apply_grads_and_refine (Adam per parameter group at its scheduled rate,
@@ -23,7 +24,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from ..models import bilateral, sky as sky_mod
+from ..models import affine as affine_mod
+from ..models import bilateral, camera_opt, sky as sky_mod
 from ..ops import pipeline
 from ..ops.camera import viewmat_from_c2w
 from ..scene import background, deformable, nodes, rigid, smpl_node
@@ -38,7 +40,9 @@ class TrainerConfig:
     use_smpl: bool = False
     use_deformable: bool = False
     sky_model: str = "envlight"
-    affine_model: str = "multiscale_bilateral"
+    affine_model: str = "multiscale_bilateral"   # multiscale_bilateral |
+    # bilateral | affine | neural_bilateral | multiscale_neural_bilateral |
+    # cp4d | none
     use_camera_opt: bool = False
     use_camera_perturb: bool = False
     use_voxel_deformer: bool = False
@@ -139,13 +143,8 @@ def _check_ported(cfg: TrainerConfig):
                      "the background-variants slice")
     if cfg.use_smpl and cfg.use_voxel_deformer:
         raise _later("the voxel skinning deformer", "the voxel-deformer slice")
-    if cfg.use_camera_opt or cfg.use_camera_perturb:
-        raise _later("camera refinement", "the camera-refinement slice")
     if cfg.sky_model != "envlight":
         raise _later(f"sky_model={cfg.sky_model!r}", "the sky-MLP slice")
-    if cfg.affine_model not in ("multiscale_bilateral", "bilateral"):
-        raise _later(f"affine_model={cfg.affine_model!r}",
-                     "the appearance-variants slice")
 
 
 def gaussian_classes(cfg: TrainerConfig):
@@ -209,13 +208,24 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
 
     batch: camera_to_world (4, 4), intrinsics (3, 3), pixels (H, W, 3),
     viewdirs (H, W, 3) world view directions, img_idx, frame_idx (ints) and
-    normed_time (float). On test views, `neighbor_idx` lists the training
-    images whose bilateral grids are averaged. `means2d_dummy`: (N, 2)
-    zeros whose gradient is the screen-space gradient of each Gaussian;
-    `opacity_multiplier`: see collect_gaussians.
+    normed_time (float). On training views the camera refinements move the
+    camera-to-world (the perturbation first), and the refined pose gives
+    both the view matrix and the SH camera origin. On test views,
+    `neighbor_idx` lists the training images whose bilateral grids are
+    averaged, and the affine codes take their mean embedding.
+    `means2d_dummy`: (N, 2) zeros whose gradient is the screen-space
+    gradient of each Gaussian; `opacity_multiplier`: see collect_gaussians.
     """
     h, w = batch["pixels"].shape[:2]
     c2w = batch["camera_to_world"]
+    img_idx = int(batch["img_idx"])
+    if not novel_view and not in_test_set:
+        if cfg.use_camera_perturb:
+            c2w = camera_opt.apply_camera_opt(params["CamPosePerturb"], c2w,
+                                              img_idx)
+        if cfg.use_camera_opt:
+            c2w = camera_opt.apply_camera_opt(params["CamPose"], c2w,
+                                              img_idx)
     viewmat = viewmat_from_c2w(c2w)
     frame = int(batch["frame_idx"])
     merged, labels = collect_gaussians(
@@ -260,17 +270,48 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     outputs["original_rgb"] = original_rgb
 
     neighbors = neighbor_idx if in_test_set else None
-    if cfg.affine_model == "multiscale_bilateral":
+    aff, affine = cfg.affine_model, params.get("Affine")
+    if aff == "multiscale_bilateral":
         mats_list = bilateral.multiscale_affines(
-            params["Affine"], original_rgb, int(batch["img_idx"]),
-            cfg.guidance_factor, neighbor_idx=neighbors)
+            affine, original_rgb, img_idx, cfg.guidance_factor,
+            neighbor_idx=neighbors)
         outputs["affine_mats"] = mats_list
         outputs["rgb"] = bilateral.compose_affines(mats_list, original_rgb)
-    else:
-        mats = bilateral.bilateral_affines(
-            params["Affine"], original_rgb, int(batch["img_idx"]),
-            neighbor_idx=neighbors)
+    elif aff == "bilateral":
+        mats = bilateral.bilateral_affines(affine, original_rgb, img_idx,
+                                           neighbor_idx=neighbors)
         outputs["rgb"] = bilateral.apply_affine(mats, original_rgb)
+    elif aff == "affine":
+        mats = affine_mod.affine_mats(affine, img_idx,
+                                      use_mean_embedding=in_test_set)
+        outputs["rgb"] = bilateral.apply_affine(mats, original_rgb)
+        outputs["affine_single"] = mats
+    elif aff in ("neural_bilateral", "multiscale_neural_bilateral"):
+        if aff == "neural_bilateral":
+            mats = bilateral.neural_bilateral_affines(
+                affine, original_rgb, img_idx, neighbor_idx=neighbors)
+        else:
+            mats = bilateral.multiscale_neural_affines(
+                affine, original_rgb, img_idx, cfg.guidance_factor,
+                neighbor_idx=neighbors)
+        # applied residually
+        outputs["rgb"] = bilateral.apply_affine(mats, original_rgb) \
+            + original_rgb
+    elif aff == "cp4d":
+        # sliced at a screen-space xyz: (x, y) over linspace(-1, 1), depth
+        # over max_depth, from the detached depth
+        dt = original_rgb.dtype
+        yy, xx = torch.meshgrid(
+            torch.linspace(-1.0, 1.0, h, dtype=dt, device=c2w.device),
+            torch.linspace(-1.0, 1.0, w, dtype=dt, device=c2w.device),
+            indexing="ij")
+        dz = torch.clamp(out["depth"][..., 0].detach() / cfg.max_depth,
+                         0.0, 1.0) * 2 - 1
+        mats = bilateral.cp4d_affines(
+            affine, torch.stack([xx, yy, dz], dim=-1), original_rgb)
+        outputs["rgb"] = bilateral.apply_affine(mats, original_rgb)
+    else:
+        outputs["rgb"] = original_rgb
     return outputs
 
 
@@ -290,9 +331,6 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
     if cfg.w_opacity_entropy > 0 or cfg.w_inverse_depth_smoothness > 0:
         raise _later("opacity-entropy and depth-smoothness losses",
                      "the loss-variants slice")
-    if cfg.w_affine_inverse > 0:
-        raise _later("the bilateral inverse (cycle) loss",
-                     "the loss-variants slice")
     if cfg.use_rigid and cfg.w_rigid_temporal > 0:
         raise _later("rigid temporal smoothness", "the loss-variants slice")
     loss = {}
@@ -300,7 +338,8 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
     if "egocar_masks" in batch:
         valid = 1.0 - batch["egocar_masks"]
     else:
-        valid = torch.ones(pixels.shape[:2], device=pixels.device)
+        valid = torch.ones(pixels.shape[:2], dtype=pixels.dtype,
+                           device=pixels.device)
     gt_rgb = pixels * valid[..., None]
     pred_rgb = outputs["rgb"] * valid[..., None]
     loss["rgb"] = cfg.w_rgb * losses.l1(gt_rgb, pred_rgb)
@@ -316,7 +355,7 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
         decay = (torch.exp(torch.tensor(-step / 8000.0 * cfg.lidar_w_decay))
                  if cfg.lidar_w_decay > 0 else 1.0)
         lidar = batch["lidar_depth_map"]
-        hit = (lidar > 0).to(torch.float32) * valid
+        hit = (lidar > 0).to(lidar.dtype) * valid
         loss["depth"] = cfg.w_depth * decay * losses.depth_loss(
             outputs["depth"][..., 0], lidar, hit,
             loss_type=cfg.depth_loss_type, normalize=cfg.depth_normalize,
@@ -326,7 +365,7 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
     if cfg.w_dynamic_region > 0 and "Dynamic_opacity" in outputs:
         # masked L1 over the pixels the dynamic-only render covers
         dyn_mask = ((outputs["Dynamic_opacity"][..., 0] > 0.2)
-                    .to(torch.float32) * valid)
+                    .to(valid.dtype) * valid)
         cnt = torch.sum(dyn_mask)
         l1_sum = torch.sum(torch.abs(gt_rgb - pred_rgb) * dyn_mask[..., None])
         active = (step > cfg.dynamic_region_start_from) & (cnt > 0)
@@ -334,12 +373,24 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
             active, cfg.w_dynamic_region * l1_sum
             / torch.clamp(cnt * 3.0, min=1.0), torch.zeros_like(l1_sum))
 
-    if cfg.affine_model == "multiscale_bilateral":
+    aff = cfg.affine_model
+    if aff in ("multiscale_bilateral", "multiscale_neural_bilateral"):
         loss["affine"] = cfg.w_affine * bilateral.multiscale_tv_loss(
             params["Affine"], cfg.ms_grid)
-    else:
+        if aff == "multiscale_bilateral" and cfg.w_affine_inverse > 0:
+            loss["affine"] = loss["affine"] + cfg.w_affine_inverse * \
+                bilateral.inverse_loss(outputs["affine_mats"], gt_rgb,
+                                       outputs["original_rgb"]
+                                       * valid[..., None])
+    elif aff in ("bilateral", "neural_bilateral"):
         loss["affine"] = cfg.w_affine * bilateral.bilateral_tv_loss(
             params["Affine"])
+    elif aff == "cp4d":
+        loss["affine"] = cfg.w_affine * bilateral.cp4d_tv_loss(
+            params["Affine"])
+    elif aff == "affine":
+        loss["affine"] = cfg.w_affine * affine_mod.identity_reg_loss(
+            outputs["affine_single"])
 
     if cfg.background_reg:
         regs = _regs(cfg.background_reg)

@@ -5,9 +5,12 @@ Renders the flagship omnire_ms_bilateral scene at full width on one NVIDIA
 GPU through the port's entry points (eval.render_loop.render_images and
 train.trainer.forward), takes flagship training steps on it
 (train.trainer.train_step), does the same for omnire_bilateral (SMPL
-pedestrians and the single bilateral grid), trains, resumes and evaluates
-a scene from disk through the port's CLI (tools.train, tools.eval) with
-both presets, and holds every hand-written kernel of those paths against
+pedestrians and the single bilateral grid) and omnire (the affine
+appearance codes with camera refinement), takes a step of each other
+appearance model (the neural, multi-scale neural and CP-4D grids, the
+multi-scale grids with the cycle loss), trains, resumes and evaluates a
+scene from disk through the port's CLI (tools.train, tools.eval) with
+every preset, and holds every hand-written kernel of those paths against
 its plain PyTorch version.
 Phases, each printed on its own line with its result and elapsed seconds:
 
@@ -106,17 +109,36 @@ Phases, each printed on its own line with its result and elapsed seconds:
             checked each step)
   bilateral_kernels each kernel of the path against its plain version on
             the arguments of its first launch in bilateral_train
+  omnire_scene .. omnire_kernels   the same phases for omnire on the same
+            scene (the state's draws as far as the appearance model as
+            bilateral_scene's): the affine codes in place of the grids and
+            the camera poses refined, both moved off their zero init; the
+            Affine and CamPose leaves among the compared gradients
+  appearance_variants   for the neural, multi-scale neural and CP-4D
+            grids and the multi-scale grids with the cycle loss
+            (affine_inverse 1): each preset's state on the same scene, one
+            step's gradients against the all-plain step (every leaf), the
+            step timed 3 times from a copy of the state, its launches
+            (one of each training kernel) and finite parameters, a test
+            view with neighbour-averaged appearance
   cli_smpl  tools.train --config omnire_bilateral on proto_scene with
             smpl.model_path=synthetic for CLI_SMPL_STEPS steps (its
             pedestrian in SMPLNodes), then tools.eval: test PSNR and the
             human-masked test PSNR
+  cli_omnire  the same with --config omnire, a resume from its step-51
+            checkpoint for 20 steps, then tools.eval: steps/s, test PSNR,
+            non-finite parameters
+  cli_presets  the CLI with each other preset this port added
+            (omnire_extended_cam, the neural, multi-scale neural and CP-4D
+            grids, omnire_ms_bilateral_extended): 20 steps of the fixture,
+            a resume from step 11, tools.eval, the five side by side
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral path), the card's name and power limit as nvidia-smi
-gives them, and, last, {"ok": true, "device": {...}}. Any failed check
-raises, so the run exits non-zero and prints no result line; so does a run
-without CUDA or outside a checkout of the repository.
+omnire_bilateral and omnire paths), the card's name and power limit as
+nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
+check raises, so the run exits non-zero and prints no result line; so does
+a run without CUDA or outside a checkout of the repository.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -133,6 +155,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -198,6 +221,40 @@ CLI_SMPL_OVERRIDES = [
     "res_schedule.double_steps=50", "res_schedule.downscale_times=1",
     "density.warmup_steps=50", "density.refine_interval=50",
     "logging.ckpt_every=1000000", "logging.log_every=50"]
+# omnire (the affine codes and camera refinement) on the omnire_bilateral
+# phases' scene, its views and steps; then the other appearance models on
+# the same scene, one training step each (every gradient leaf against the
+# all-plain step) timed VARIANT_TIMED_STEPS times, and a test view: the
+# trainer's appearance branch, the preset and its overrides
+VARIANTS = (
+    ("neural_bilateral", "omnire_neuralbilateral", []),
+    ("multiscale_neural_bilateral", "omnire_ms_neuralbilateral", []),
+    ("cp4d", "omnire_cp4d", []),
+    ("multiscale_bilateral_inverse", "omnire_ms_bilateral",
+     ["losses.affine_inverse=1.0"]))
+VARIANT_TIMED_STEPS = 3
+# the CLI with the omnire preset, as cli_smpl, then a resume from the
+# step-CLI_OMNIRE_RESUME checkpoint for CLI_OMNIRE_RESUME_STEPS steps
+CLI_OMNIRE_RESUME, CLI_OMNIRE_RESUME_STEPS = 51, 20
+CLI_OMNIRE_OVERRIDES = [o for o in CLI_SMPL_OVERRIDES
+                        if not o.startswith("logging.ckpt_every")] + [
+    "logging.ckpt_every=50"]
+# the other presets through the CLI on the fixture: each trains
+# CLI_PRESET_STEPS steps, resumes from its step-CLI_PRESET_RESUME
+# checkpoint and is evaluated, the five runs side by side (no steps/s from
+# them), with 262,144 background slots (checkpoints of a fifth the size;
+# cli and cli_omnire run the flagship widths)
+CLI_PRESETS = ("omnire_extended_cam", "omnire_neuralbilateral",
+               "omnire_ms_neuralbilateral", "omnire_cp4d",
+               "omnire_ms_bilateral_extended")
+CLI_PRESET_STEPS, CLI_PRESET_RESUME = 20, 11
+CLI_PRESET_OVERRIDES = [
+    o for o in CLI_SMPL_OVERRIDES if not o.startswith(
+        ("trainer.max_steps", "res_schedule", "density", "logging"))] + [
+    f"trainer.max_steps={CLI_PRESET_STEPS}", "logging.ckpt_every=10",
+    "logging.log_every=10", "density.warmup_steps=5",
+    "density.refine_interval=10", "res_schedule.double_steps=10",
+    "res_schedule.downscale_times=1", "background_init.capacity=262144"]
 # runs a module as __main__ with PIL made unimportable
 NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
           "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
@@ -977,24 +1034,7 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
           "the kernel step missed a kernel")
     mid = counts(wrappers)
 
-    def fwd_plain(f, st, c, w, h, residuals=False):
-        o = rasterize_cuda.rasterize_fwd_plain(f, st, c, w, h)
-        return (o.img, o.n_live, o.ckpt_off, o.ckpt) if residuals else o.img
-
-    with patched(
-            (pipeline, "expand_cuda", types.SimpleNamespace(
-                expand_gather=expand_cuda.expand_gather_plain)),
-            (pipeline, "rasterize_cuda", types.SimpleNamespace(
-                rasterize_fwd=fwd_plain,
-                rasterize_bwd=rasterize_cuda.rasterize_bwd_plain)),
-            (pipeline, "segsum_cuda", types.SimpleNamespace(
-                segment_sum=lambda d, o: segsum_cuda.segment_sum_plain(
-                    list(d), o))),
-            (cubemap, "cubemap_cuda", types.SimpleNamespace(
-                splat_grad=cubemap_cuda.splat_grad_plain)),
-            (binning, "scan_utils", plain_scans())):
-        _, _, _, g_p, gd_p = trainer.compute_grads(cfg, statics, tstate,
-                                                   batch)
+    _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch)
     torch.cuda.synchronize()
     check(counts(wrappers) == mid,
           "a kernel launched in the plain-version step")
@@ -1019,9 +1059,9 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
     check(rels[worst] <= GRADS_RTOL,
           f"gradient of {worst} differs from the plain step by "
           f"{rels[worst]}")
-    if cfg.use_smpl:
-        check(not any(k.startswith("SMPLNodes/") for k in zero),
-              f"an SMPLNodes leaf has no gradient: {zero}")
+    check(not any(k.startswith(("SMPLNodes/", "Affine/", "CamPose"))
+                  for k in zero),
+          f"an SMPLNodes, Affine or CamPose leaf has no gradient: {zero}")
     del g_k, g_p, gd_k, gd_p
 
     # ---- train: the training main path, counters from 0
@@ -1131,7 +1171,35 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
         step_median)
     del st, saved
     phase(f"{prefix}train_profile", t0, step=TRAIN_STEP0 + 1, **profiled)
-    return captured, launches, steps
+    return captured, launches, steps, batches
+
+
+def plain_step_grads(cfg, statics, tstate, batch):
+    """trainer.compute_grads with every kernel reference of the pipeline
+    pointed at its plain version."""
+    from bilateral_driving_tpu_torch.ops import (binning, cubemap,
+                                                 cubemap_cuda, expand_cuda,
+                                                 pipeline, rasterize_cuda,
+                                                 segsum_cuda)
+    from bilateral_driving_tpu_torch.train import trainer
+
+    def fwd_plain(f, st, c, w, h, residuals=False):
+        o = rasterize_cuda.rasterize_fwd_plain(f, st, c, w, h)
+        return (o.img, o.n_live, o.ckpt_off, o.ckpt) if residuals else o.img
+
+    with patched(
+            (pipeline, "expand_cuda", types.SimpleNamespace(
+                expand_gather=expand_cuda.expand_gather_plain)),
+            (pipeline, "rasterize_cuda", types.SimpleNamespace(
+                rasterize_fwd=fwd_plain,
+                rasterize_bwd=rasterize_cuda.rasterize_bwd_plain)),
+            (pipeline, "segsum_cuda", types.SimpleNamespace(
+                segment_sum=lambda d, o: segsum_cuda.segment_sum_plain(
+                    list(d), o))),
+            (cubemap, "cubemap_cuda", types.SimpleNamespace(
+                splat_grad=cubemap_cuda.splat_grad_plain)),
+            (binning, "scan_utils", plain_scans())):
+        return trainer.compute_grads(cfg, statics, tstate, batch)
 
 
 def training(args, cfg, scene, state, statics, dev):
@@ -1143,7 +1211,7 @@ def training(args, cfg, scene, state, statics, dev):
     from bilateral_driving_tpu_torch.ops import (cubemap_cuda, pipeline,
                                                  rasterize_cuda, segsum_cuda)
 
-    captured, launches, steps = train_path("", args, cfg, scene, state,
+    captured, launches, steps, _ = train_path("", args, cfg, scene, state,
                                            statics, dev, TRAIN_IMAGES)
     # ---- train_kernels: each training kernel against its plain version
     t0 = time.perf_counter()
@@ -1404,10 +1472,13 @@ def path_kernels(name: str, captured, dev) -> dict:
     return out
 
 
-def omnire_bilateral(args, dev):
-    """The omnire_bilateral phases (bilateral_scene .. bilateral_kernels).
-    Returns each kernel's launches in the bilateral_render frames and in
-    the bilateral_train steps, and the counts of both."""
+def smpl_preset(prefix: str, preset: str, args, dev, scene_rng=None):
+    """The phases of an SMPL preset on the flagship's scene plus the
+    walkers (<prefix>scene .. <prefix>kernels). `scene_rng` (scene,
+    generator state after drawing it) reuses an earlier call's scene, and
+    the state's draws start where they did there. Returns each kernel's
+    launches in the <prefix>render frames and in the <prefix>train steps,
+    the counts of both, scene_rng and the training batches."""
     import torch
 
     from bilateral_driving_tpu_torch import configs
@@ -1419,23 +1490,27 @@ def omnire_bilateral(args, dev):
     from bilateral_driving_tpu_torch.train import trainer
     from bilateral_driving_tpu_torch.utils.config import wrap
 
-    # ---- bilateral_scene: the flagship's scene plus the walkers
+    # ---- <prefix>scene: the flagship's scene plus the walkers
     t0 = time.perf_counter()
     g = torch.Generator().manual_seed(args.seed)
-    scene = synthetic.make_scene(
-        g, num_bg=NUM_BG, num_frames=NUM_FRAMES, num_cams=NUM_CAMS,
-        width=WIDTH, height=HEIGHT, focal=FOCAL, num_rigid=RIGID,
-        rigid_pts=PTS, num_deformable=DEFORM, deformable_pts=PTS,
-        num_smpl=SMPL_WALKERS, device=dev)
+    if scene_rng is None:
+        scene = synthetic.make_scene(
+            g, num_bg=NUM_BG, num_frames=NUM_FRAMES, num_cams=NUM_CAMS,
+            width=WIDTH, height=HEIGHT, focal=FOCAL, num_rigid=RIGID,
+            rigid_pts=PTS, num_deformable=DEFORM, deformable_pts=PTS,
+            num_smpl=SMPL_WALKERS, device=dev)
+        scene_rng = (scene, g.get_state())
+    scene = scene_rng[0]
+    g.set_state(scene_rng[1])
     data = synthetic.SyntheticData(scene)
-    cfg = common.trainer_config_from(wrap(configs.OMNIRE_BILATERAL_TREE),
+    cfg = common.trainer_config_from(wrap(configs.PRESETS[preset]),
                                      data.num_images, NUM_FRAMES, 1.0)
     state, statics = synthetic.random_state(
         scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
         device=dev, smpl_verts=SMPL_VERTS)
     full_statics = trainer.merge_statics(statics, state.aux)
     neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
-    check(BILATERAL_VIEWS[1] in neighbor_map, "bilateral test view")
+    check(BILATERAL_VIEWS[1] in neighbor_map, f"{prefix}test view")
     views = [(data.get_batch(i), i in neighbor_map)
              for i in BILATERAL_VIEWS + BILATERAL_TRAIN_IMAGES]
     cap, probes = isect_capacity(cfg, state, full_statics, views, WIDTH,
@@ -1457,11 +1532,13 @@ def omnire_bilateral(args, dev):
     check(all(n > 0 for n in smpl_isects),
           f"a walker-free view: {smpl_isects}")
     torch.cuda.synchronize()
-    phase("bilateral_scene", t0, config="omnire_bilateral",
+    phase(f"{prefix}scene", t0, config=preset,
           smpl_walkers=SMPL_WALKERS, smpl_points=int(
               state.masks["SMPLNodes"].sum()),
           smpl_verts_per_body=SMPL_VERTS,
-          grids=list(state.params["Affine"]["grids"].shape),
+          affine={k: list(p.shape) for k, p in trainer.named_leaves(
+              state.params["Affine"])},
+          camera_opt=cfg.use_camera_opt,
           bg_live=int(state.masks["Background"].sum()),
           rigid_points=int(state.masks["RigidNodes"].sum()),
           deformable_points=int(state.masks["DeformableNodes"].sum()),
@@ -1469,7 +1546,7 @@ def omnire_bilateral(args, dev):
           probe_num_isects=probes, smpl_num_isects=smpl_isects,
           isect_capacity=cap)
 
-    # ---- bilateral_render: a train and a test view, each FRAME_REPEATS
+    # ---- <prefix>render: a train and a test view, each FRAME_REPEATS
     # times, counters from 0
     t0 = time.perf_counter()
     wrappers = kernel_wrappers()
@@ -1496,7 +1573,7 @@ def omnire_bilateral(args, dev):
                       (rgb, res["depths"][0], res["opacities"][0]))
               and not bool(res["overflow"][0])
               and int(res["num_isects"][0]) > 0,
-              f"bilateral render of view {idx}: {res['num_isects'][0]}")
+              f"{prefix}render of view {idx}: {res['num_isects'][0]}")
         frames.append({"image": idx, "test_view": idx in neighbor_map,
                        "num_isects": int(res["num_isects"][0]),
                        "rgb_mean": round(float(rgb.mean()), 4)})
@@ -1505,7 +1582,7 @@ def omnire_bilateral(args, dev):
     prof = device_profile(lambda: render_loop.render_images(
         cfg, state, statics, data, [BILATERAL_VIEWS[1]], neighbor_map),
         frame_median)
-    phase("bilateral_render", t0, frames=frames, launches=render_launches,
+    phase(f"{prefix}render", t0, frames=frames, launches=render_launches,
           ms_per_frame=[round(x, 3) for x in frame_ms],
           median_ms=round(frame_median, 3),
           spread_ms=round(max(frame_ms) - min(frame_ms), 3),
@@ -1514,15 +1591,15 @@ def omnire_bilateral(args, dev):
               "device_idle_share_of_median"), **prof,
           nvidia_smi=nvidia_smi())
 
-    captured, launches, steps = train_path("bilateral_", args, cfg, scene,
-                                           state, statics, dev,
-                                           BILATERAL_TRAIN_IMAGES)
+    captured, launches, steps, batches = train_path(
+        prefix, args, cfg, scene, state, statics, dev,
+        BILATERAL_TRAIN_IMAGES)
 
-    # ---- bilateral_kernels: each kernel of the path against its plain
+    # ---- <prefix>kernels: each kernel of the path against its plain
     # version on the path's own inputs
     t0 = time.perf_counter()
-    errs = path_kernels("omnire_bilateral train inputs", captured, dev)
-    phase("bilateral_kernels", t0, **errs,
+    errs = path_kernels(f"{preset} train inputs", captured, dev)
+    phase(f"{prefix}kernels", t0, **errs,
           tolerance={"expand": "bit-exact", "scan": "bit-exact",
                      "rasterize_fwd": f"atol {RASTER_ATOL} + rtol "
                                       f"{RASTER_RTOL}",
@@ -1530,7 +1607,134 @@ def omnire_bilateral(args, dev):
                      "segment_sum": f"row relative norm {SUM_RTOL}",
                      "splat_grad": f"row relative norm {SUM_RTOL}"},
           nvidia_smi=nvidia_smi())
-    return render_launches, len(frame_ms), launches, len(steps)
+    return (render_launches, len(frame_ms), launches, len(steps), scene_rng,
+            batches)
+
+
+def appearance_variants(args, dev, scene_rng, batches):
+    """The appearance_variants phase: on the omnire scene, for each of
+    VARIANTS one training step through the kernels with every gradient
+    leaf against the all-plain step, the step's median over
+    VARIANT_TIMED_STEPS runs from a copy of the state, a test-view frame
+    with neighbour-averaged appearance, launch counters from 0 around the
+    step and the frame, and every parameter finite after the step."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.eval import render_loop
+    from bilateral_driving_tpu_torch.tools import common
+    from bilateral_driving_tpu_torch.train import trainer
+    from bilateral_driving_tpu_torch.utils.config import (apply_dotlist,
+                                                          wrap)
+
+    t0 = time.perf_counter()
+    scene = scene_rng[0]
+    data = synthetic.SyntheticData(scene)
+    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
+    batch = batches[0]
+    wrappers = kernel_wrappers()
+    out = {}
+    for name, preset, over in VARIANTS:
+        g = torch.Generator().manual_seed(args.seed)
+        g.set_state(scene_rng[1])
+        cfg = common.trainer_config_from(
+            apply_dotlist(wrap(configs.PRESETS[preset]), over),
+            data.num_images, NUM_FRAMES, 1.0)
+        check(cfg.affine_model == name.removesuffix("_inverse"),
+              f"{preset}: affine_model {cfg.affine_model}")
+        state, statics = synthetic.random_state(
+            scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
+            device=dev, smpl_verts=SMPL_VERTS)
+        views = [(batch, False), (data.get_batch(BILATERAL_VIEWS[1]), True)]
+        cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
+            statics, state.aux), views, WIDTH, HEIGHT, scene.K)
+        cfg = dataclasses.replace(cfg, isect_capacity=cap)
+        tstate = trainer.init_state(
+            cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
+            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        for f in wrappers.values():
+            f.launches = 0
+        _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate,
+                                                   batch)
+        grad_launches = counts(wrappers)
+        _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch)
+        torch.cuda.synchronize()
+        check(counts(wrappers) == grad_launches,
+              f"{name}: a kernel launched in the plain-version step")
+        g_k["means2d"], g_p["means2d"] = gd_k, gd_p
+        rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
+        worst = max(rels, key=rels.get)
+        zero = sorted(k for k in g_p if not bool(g_p[k].any()))
+        check(rels[worst] <= GRADS_RTOL,
+              f"{name}: gradient of {worst} differs from the plain step by "
+              f"{rels[worst]}")
+        check(not any(k.startswith(("SMPLNodes/", "Affine/")) for k in zero),
+              f"{name}: an SMPLNodes or Affine leaf has no gradient: {zero}")
+        affine_rel = {k: float(f"{v:.3g}") for k, v in rels.items()
+                      if k.startswith("Affine/")}
+        del g_k, g_p, gd_k, gd_p
+
+        saved = snapshot(tstate)
+        for f in wrappers.values():
+            f.launches = 0
+        ms = []
+        for i in range(VARIANT_TIMED_STEPS):
+            st = restore(saved, tstate.generator) if i else tstate
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = trainer.train_step(cfg, statics, st, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            if i == 0:
+                step_launches = counts(wrappers)
+                vals = {k: float(v) for k, v in m.items()}
+                tstate = st
+            del st
+        check(all(step_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
+              and step_launches["scan"] >= 1
+              and step_launches["segment_sum_rows"] == 0,
+              f"{name}: the step's launches {step_launches}")
+        check(all(math.isfinite(v) for v in vals.values())
+              and vals["nonfinite_params"] == 0
+              and vals["isect_overflow"] == 0,
+              f"{name}: step metrics {vals}")
+        check(all(bool(torch.isfinite(p).all())
+                  for _, p in trainer.named_leaves(tstate.params)),
+              f"{name}: a parameter is not finite")
+        del saved
+
+        for f in wrappers.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = render_loop.render_images(cfg, tstate, statics, data,
+                                        [BILATERAL_VIEWS[1]], neighbor_map)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t1)
+        frame_launches = counts(wrappers)
+        rgb = res["rgbs"][0]
+        check(all(frame_launches[k] == 1 for k in ("expand",
+                                                   "rasterize_fwd"))
+              and frame_launches["scan"] >= 1
+              and bool(torch.isfinite(rgb).all())
+              and not bool(res["overflow"][0]),
+              f"{name}: test frame {frame_launches}")
+        out[name] = {
+            "preset": preset, "overrides": over, "isect_capacity": cap,
+            "grads_worst_leaf": worst, "grads_worst_rel_norm": rels[worst],
+            "affine_rel_norm": affine_rel, "zero_leaves": zero,
+            "loss": round(vals["loss"], 5),
+            "loss_affine": vals["loss/affine"],
+            "step_ms": [round(x, 3) for x in ms],
+            "step_median_ms": round(sorted(ms)[len(ms) // 2], 3),
+            "step_launches": step_launches,
+            "test_frame_ms": round(frame_ms, 3),
+            "test_frame_launches": frame_launches,
+            "test_frame_rgb_mean": round(float(rgb.mean()), 4)}
+        del tstate, state, statics
+    phase("appearance_variants", t0, variants=out, tolerance=GRADS_RTOL,
+          nvidia_smi=nvidia_smi())
 
 
 def cli_smpl(dev):
@@ -1573,6 +1777,140 @@ def cli_smpl(dev):
           train_s=round(train_s, 2), eval_s=round(eval_s, 2),
           device=str(dev), nvidia_smi=nvidia_smi())
     shutil.rmtree(out)
+
+
+def cli_omnire(dev):
+    """The cli_omnire phase: tools.train --config omnire on proto_scene
+    with the synthetic body for CLI_SMPL_STEPS steps, a resume from its
+    step-CLI_OMNIRE_RESUME checkpoint, then tools.eval: steps/s, the test
+    PSNR and the non-finite parameters (0). The run directory goes to
+    work_dirs/chip_smoke_cli_omnire and is removed after."""
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_omnire")
+    shutil.rmtree(out, ignore_errors=True)
+    run_dir = os.path.join(out, "omnire")
+    train_s = run_cli("train", "--config", "omnire", "--output_root", out,
+                      "--run_name", "omnire", *CLI_OMNIRE_OVERRIDES)
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    check(summ["steps"] == CLI_SMPL_STEPS, f"trained {summ['steps']} steps")
+    check(summ["final_points"].get("SMPLNodes", 0) > 0,
+          f"the pedestrian is not in SMPLNodes: {summ['final_points']}")
+    launched = summ["launches"]
+    check(launched["segment_sum_rows"] == 0 and all(
+        launched[k] >= CLI_SMPL_STEPS for k in TRAIN_PATH),
+          f"a kernel missed training steps of the CLI run: {launched}")
+    check(summ["nonfinite_params_max"] == 0 and summ["overflow_steps"] == 0,
+          f"guards: {summ}")
+    ckpt = os.path.join(run_dir, "checkpoints",
+                        f"checkpoint_{CLI_OMNIRE_RESUME}.pt")
+    check(os.path.exists(ckpt), f"no checkpoint {ckpt}")
+    resume_s = run_cli(
+        "train", "--config", "omnire", "--output_root", out, "--run_name",
+        "resume", "--resume_from", ckpt, *CLI_OMNIRE_OVERRIDES,
+        f"trainer.max_steps={CLI_OMNIRE_RESUME + CLI_OMNIRE_RESUME_STEPS}")
+    with open(os.path.join(out, "resume", "train_summary.json")) as f:
+        resumed = json.load(f)
+    check((resumed["start_step"], resumed["end_step"])
+          == (CLI_OMNIRE_RESUME, CLI_OMNIRE_RESUME + CLI_OMNIRE_RESUME_STEPS)
+          and resumed["nonfinite_params_max"] == 0,
+          f"resumed {resumed['start_step']}..{resumed['end_step']}")
+    eval_s = run_cli("eval", "--log_dir", run_dir, "--compute_geo")
+    with open(os.path.join(run_dir, "metrics_test.json")) as f:
+        test = {k: v for k, v in json.load(f).items()
+                if isinstance(v, float)}
+    check(all(math.isfinite(test[k]) for k in ("psnr", "human_psnr")),
+          f"metrics_test.json: {test}")
+    phase("cli_omnire", t0, steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          peak_mem_bytes=summ["peak_mem_bytes"],
+          nonfinite_params=summ["nonfinite_params_max"],
+          final_points=summ["final_points"], refines=summ["refines"],
+          launches=launched,
+          resumed_steps=[resumed["start_step"], resumed["end_step"]],
+          resumed_nonfinite_params=resumed["nonfinite_params_max"],
+          test_psnr=test["psnr"], test_human_psnr=test["human_psnr"],
+          metrics_test=test, train_s=round(train_s, 2),
+          resume_s=round(resume_s, 2), eval_s=round(eval_s, 2),
+          device=str(dev), nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
+
+
+def cli_presets(dev):
+    """The cli_presets phase: tools.train for each of CLI_PRESETS, a
+    resume from its step-CLI_PRESET_RESUME checkpoint and tools.eval, the
+    presets side by side; per preset its guards, launches, resumed steps
+    and test PSNR. The run directories go to
+    work_dirs/chip_smoke_cli_presets and are removed after."""
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_presets")
+    shutil.rmtree(out, ignore_errors=True)
+
+    def summary(name):
+        with open(os.path.join(out, name, "train_summary.json")) as f:
+            return json.load(f)
+
+    run_clis(*[("train", "--config", p, "--output_root", out, "--run_name",
+                p, *CLI_PRESET_OVERRIDES) for p in CLI_PRESETS])
+    run_clis(*[("train", "--config", p, "--output_root", out, "--run_name",
+                f"{p}_resume", "--resume_from", os.path.join(
+                    out, p, "checkpoints",
+                    f"checkpoint_{CLI_PRESET_RESUME}.pt"),
+                *CLI_PRESET_OVERRIDES) for p in CLI_PRESETS])
+    run_clis(*[("eval", "--log_dir", os.path.join(out, p))
+               for p in CLI_PRESETS])
+    runs = {}
+    for p in CLI_PRESETS:
+        summ, resumed = summary(p), summary(f"{p}_resume")
+        launched = summ["launches"]
+        check(summ["steps"] == CLI_PRESET_STEPS
+              and launched["segment_sum_rows"] == 0
+              and all(launched[k] >= CLI_PRESET_STEPS for k in TRAIN_PATH),
+              f"{p}: {summ['steps']} steps, launches {launched}")
+        check(summ["nonfinite_params_max"] == 0
+              and summ["overflow_steps"] == 0
+              and resumed["nonfinite_params_max"] == 0
+              and (resumed["start_step"], resumed["end_step"])
+              == (CLI_PRESET_RESUME, CLI_PRESET_STEPS),
+              f"{p}: guards or resume {summ} {resumed}")
+        with open(os.path.join(out, p, "metrics_test.json")) as f:
+            psnr = json.load(f)["psnr"]
+        check(math.isfinite(psnr), f"{p}: test PSNR {psnr}")
+        runs[p] = {"steps": summ["steps"], "launches": launched,
+                   "refines": len(summ["refines"]),
+                   "final_points": summ["final_points"],
+                   "resumed_steps": [resumed["start_step"],
+                                     resumed["end_step"]],
+                   "nonfinite_params": summ["nonfinite_params_max"],
+                   "test_psnr": psnr}
+    phase("cli_presets", t0, runs=runs,
+          side_by_side="the presets ran at once: no steps/s from them",
+          device=str(dev), nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
+
+
+def run_clis(*calls):
+    """Run (module, *argv) CLI calls of the port side by side, each in a
+    subprocess with PIL blocked and its output in a file; raises with the
+    end of a failed one's output."""
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (module, *argv) in enumerate(calls):
+            log = open(os.path.join(tmp, f"{i}.log"), "w+")
+            procs.append((module, log, subprocess.Popen(
+                [sys.executable, "-c", NO_PIL,
+                 f"bilateral_driving_tpu_torch.tools.{module}", *argv],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
+        failed = []
+        for module, log, proc in procs:
+            proc.wait()
+            log.seek(0)
+            if proc.returncode != 0:
+                failed.append(f"tools.{module} exited {proc.returncode}:\n"
+                              f"{log.read()[-3000:]}")
+            log.close()
+    if failed:
+        raise SmokeError("\n".join(failed))
 
 
 def run_cli(module: str, *argv) -> float:
@@ -2016,14 +2354,26 @@ def main() -> int:
 
     # every kernel's launches on the omnire_bilateral path: render frames
     # and training steps
-    render_l, n_frames, train_l, n_steps = omnire_bilateral(args, dev)
+    render_l, n_frames, train_l, n_steps, scene_rng, _ = smpl_preset(
+        "bilateral_", "omnire_bilateral", args, dev)
     for k in kernels:
         k["launches_omnire_bilateral"] = {
             "render": render_l[k["name"]], "frames": n_frames,
             "train": train_l[k["name"]], "steps": n_steps}
+    # omnire on the same scene, then the other appearance models
+    render_l, n_frames, train_l, n_steps, _, batches = smpl_preset(
+        "omnire_", "omnire", args, dev, scene_rng)
+    for k in kernels:
+        k["launches_omnire"] = {
+            "render": render_l[k["name"]], "frames": n_frames,
+            "train": train_l[k["name"]], "steps": n_steps}
+    appearance_variants(args, dev, scene_rng, batches)
+    del scene_rng, batches
 
     cli(dev)
     cli_smpl(dev)
+    cli_omnire(dev)
+    cli_presets(dev)
 
     phase("total", t_start, seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

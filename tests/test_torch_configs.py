@@ -1,33 +1,52 @@
-"""The port's flagship preset against the YAML the JAX package reads, and
-the port's independence from JAX, flax, optax and PyYAML."""
+"""The port's presets against the YAMLs the JAX package reads, and the
+port's independence from JAX, flax, optax and PyYAML."""
 import dataclasses
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+import yaml
+
 from bilateral_driving_tpu.tools import common
 from bilateral_driving_tpu.utils import config as config_lib
 from bilateral_driving_tpu_torch import configs
-from bilateral_driving_tpu_torch.train import trainer
+from bilateral_driving_tpu_torch.tools import common as port_common
+from bilateral_driving_tpu_torch.train import setup, trainer
+from bilateral_driving_tpu_torch.utils import config as port_config
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-FLAGSHIP_YAML = os.path.join(ROOT, "bilateral_driving_tpu", "configs",
-                             "omnire_ms_bilateral.yaml")
 
 
-def test_flagship_preset_equals_yaml():
-    cfg = config_lib.load_config(FLAGSHIP_YAML)
+@pytest.mark.parametrize("name", list(configs.PRESETS))
+def test_preset_equals_yaml(name):
+    """Every preset equals PyYAML's load of its YAML, maps onto the
+    TrainerConfig the JAX package builds from that YAML, field by field,
+    and is accepted by the trainer and by build_models."""
+    path = os.path.join(ROOT, "bilateral_driving_tpu", "configs",
+                        f"{name}.yaml")
+    with open(path) as f:
+        assert configs.PRESETS[name] == yaml.safe_load(f)
+    cfg = config_lib.load_config(path)
     want = common.trainer_config_from(cfg, num_images=240, num_frames=40,
                                       scene_scale=1.0)
-    got = configs.flagship_config(240, 40)
+    got = port_common.trainer_config_from(
+        port_config.wrap(configs.PRESETS[name]), 240, 40, 1.0)
     fields = [f.name for f in dataclasses.fields(trainer.TrainerConfig)]
     # every field the port's forward reads exists in the JAX config
-    assert all(hasattr(want, name) for name in fields)
-    for name in fields:
-        assert getattr(got, name) == getattr(want, name), name
-    assert configs.FLAGSHIP_BG_CAPACITY == cfg["background_init"]["capacity"]
-    assert configs.FLAGSHIP_MAX_STEPS == cfg["trainer"]["max_steps"]
+    assert all(hasattr(want, f) for f in fields)
+    for f in fields:
+        assert getattr(got, f) == getattr(want, f), f
+    trainer._check_ported(got)
+    models = setup.build_models(got, device="cpu")
+    assert ("Affine" in models) == (got.affine_model != "none")
+    assert ("CamPose" in models) == got.use_camera_opt
+    if name == "omnire_ms_bilateral":
+        assert configs.flagship_config(240, 40) == got
+        assert configs.FLAGSHIP_BG_CAPACITY == \
+            cfg["background_init"]["capacity"]
+        assert configs.FLAGSHIP_MAX_STEPS == cfg["trainer"]["max_steps"]
 
 
 def test_port_imports_no_jax_package():

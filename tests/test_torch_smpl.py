@@ -3,8 +3,9 @@ package: the body model (the JAX package's synthetic body carried across
 by bilateral_driving_tpu_torch/convert.py), the pickle reader, the mesh
 initialisation, the node's Gaussians, its KNN and joint-smoothness
 regularisers with their gradients, the pose loader on
-tests/fixtures/proto_scene, the single grid, and the omnire_bilateral
-preset. Inputs come from numpy with a seed; both sides run on the CPU.
+tests/fixtures/proto_scene and the single grid (the omnire_bilateral
+preset is held to its YAML in tests/test_torch_configs.py). Inputs come
+from numpy with a seed; both sides run on the CPU.
 """
 import os
 import pickle
@@ -15,16 +16,13 @@ import numpy as np
 import pytest
 import scipy.sparse
 import torch
-import yaml
 
 from bilateral_driving_tpu.core import transforms as jtransforms
 from bilateral_driving_tpu.data import scene as jscene
 from bilateral_driving_tpu.models import bilateral as jbilateral
 from bilateral_driving_tpu.scene import smpl_model as jsmpl_model
 from bilateral_driving_tpu.scene import smpl_node as jsmpl_node
-from bilateral_driving_tpu.tools import common as jcommon
 from bilateral_driving_tpu.train import setup as jsetup
-from bilateral_driving_tpu.utils import config as jconfig
 from bilateral_driving_tpu_torch import configs, convert
 from bilateral_driving_tpu_torch.core import transforms
 from bilateral_driving_tpu_torch.data import scene
@@ -35,8 +33,6 @@ from bilateral_driving_tpu_torch.train import trainer
 from bilateral_driving_tpu_torch.utils import config
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-BILATERAL_YAML = os.path.join(ROOT, "bilateral_driving_tpu", "configs",
-                              "omnire_bilateral.yaml")
 SCENE = os.path.join(ROOT, "tests", "fixtures", "proto_scene")
 EPS = np.finfo(np.float32).eps
 # the body model and the node's outputs: float32 chains of 4 x 4 products
@@ -451,20 +447,6 @@ def test_single_grid_matches_jax():
         jbilateral.init_bilateral(None, 4)["grids"]))
 
 
-def test_omnire_bilateral_preset_equals_yaml():
-    with open(BILATERAL_YAML) as f:
-        assert configs.OMNIRE_BILATERAL_TREE == yaml.safe_load(f)
-    want = jcommon.trainer_config_from(jconfig.load_config(BILATERAL_YAML),
-                                       num_images=240, num_frames=40,
-                                       scene_scale=1.0)
-    got = common.trainer_config_from(
-        config.wrap(configs.OMNIRE_BILATERAL_TREE), 240, 40, 1.0)
-    for f in trainer.TrainerConfig.__dataclass_fields__:
-        assert getattr(got, f) == getattr(want, f), f
-    assert got.use_smpl and got.affine_model == "bilateral"
-    assert dict((n, r) for n, *r in got.lr)["affine"] == [1e-5, None, 0]
-
-
 def test_voxel_deformer_names_its_slice():
     cfg = common.trainer_config_from(config.apply_dotlist(
         config.wrap(configs.OMNIRE_BILATERAL_TREE),
@@ -473,6 +455,6 @@ def test_voxel_deformer_names_its_slice():
         trainer.collect_gaussians(cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0)
     cfg = common.trainer_config_from(config.apply_dotlist(
         config.wrap(configs.OMNIRE_BILATERAL_TREE),
-        ["trainer.affine_model=affine"]), 1, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="appearance-variants"):
+        ["trainer.sky_model=mlp"]), 1, 1, 1.0)
+    with pytest.raises(NotImplementedError, match="sky-MLP slice"):
         trainer.collect_gaussians(cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0)
