@@ -98,7 +98,7 @@ FLAGSHIP_TREE = {
 
 def _variant(base: dict, changes: dict, drop=()) -> dict:
     """A copy of `base` with `changes` merged block by block and the
-    dotted keys of `drop` removed."""
+    dotted keys (or whole blocks) of `drop` removed."""
     tree = copy.deepcopy(base)
     for block, value in changes.items():
         if isinstance(value, dict) and isinstance(tree.get(block), dict):
@@ -106,8 +106,11 @@ def _variant(base: dict, changes: dict, drop=()) -> dict:
         else:
             tree[block] = copy.deepcopy(value)
     for path in drop:
-        block, key = path.split(".")
-        del tree[block][key]
+        block, _, key = path.partition(".")
+        if key:
+            del tree[block][key]
+        else:
+            del tree[block]
     return tree
 
 
@@ -178,6 +181,57 @@ OMNIRE_MS_BILATERAL_EXTENDED_TREE = _variant(
                  "stop_split_at": 20000, "stop_screen_size_at": 5000}},
     drop=_SMPL_DROP)
 
+# the single-class trainers: no rigid, deformable or SMPL nodes, the
+# affine codes with camera refinement, three cameras at full resolution
+_SINGLE_CLASS = {
+    "trainer": {"use_rigid": False, "use_deformable": False,
+                "affine_model": "affine", "use_camera_opt": True},
+    "data": {"cameras": [0, 1, 2], "downscale": 1, "num_cams": 3},
+    "optim": {"affine": {"lr": 1e-5, "lr_final": None, "warmup_steps": 0}}}
+_SINGLE_CLASS_DROP = ("render.radius_clip", "logging.vis_freq", "smpl",
+                      "losses.max_depth", "losses.affine_inverse",
+                      "losses.rigid_temporal", "losses.smpl_joint_smooth")
+
+# pvg.yaml: the PVG background with its temporal model, temporal
+# densification, the inverse-depth loss over the image, opacity entropy,
+# inverse-depth smoothness and the velocity regulariser
+PVG_TREE = _variant(
+    FLAGSHIP_TREE,
+    {**_SINGLE_CLASS,
+     "trainer": {**_SINGLE_CLASS["trainer"], "background_model": "pvg",
+                 "sh_degree_interval": 2000},
+     "losses": {"mask": 1.0, "mask_loss_type": "safe_bce", "depth": 0.1,
+                "depth_inverse": True, "depth_normalize": False,
+                "depth_reduction": "mean_on_hw", "lidar_w_decay": 1.0,
+                "opacity_entropy": 0.05, "inverse_depth_smoothness": 0.001,
+                "affine": 1e-5},
+     "background_reg": {"velocity_reg": {"w": 0.001}},
+     "density": {"densify_grad_thresh": 0.0002, "densify_size_thresh": 0.01,
+                 "cull_screen_size": 0.15, "split_screen_size": 0.05,
+                 "stop_split_at": 20000,
+                 "densify_until_num_points": 3000000,
+                 "densify_t_grad_thresh": 0.002,
+                 "densify_t_size_thresh": 0.01, "no_time_split": True},
+     "pvg": {"cycle_length": 0.2, "time_interval": 0.02, "betas_init": 0.1,
+             "enable_temporal_smoothing": True, "smooth_probability": 0.5,
+             "distribution_span": 1.5},
+     "res_schedule": {"double_steps": 5000, "downscale_times": 3},
+     "optim": {**_SINGLE_CLASS["optim"], "logit_opacities": {"lr": 0.005}}},
+    drop=_SINGLE_CLASS_DROP + ("sampler.refresh_every",
+                               "sampler.refresh_downscale"))
+
+# deformablegs.yaml: the DeformableGS background (a deformation network
+# over every background slot), BCE sky loss, no background regulariser
+DEFORMABLEGS_TREE = _variant(
+    FLAGSHIP_TREE,
+    {**_SINGLE_CLASS,
+     "trainer": {**_SINGLE_CLASS["trainer"], "background_model": "deformgs"},
+     "losses": {"mask_loss_type": "bce", "affine": 1e-5}},
+    drop=_SINGLE_CLASS_DROP + (
+        "sampler", "background_reg", "density.n_split_samples",
+        "losses.lidar_w_decay", "losses.opacity_entropy",
+        "losses.inverse_depth_smoothness"))
+
 PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
            "omnire_bilateral": OMNIRE_BILATERAL_TREE,
            "omnire": OMNIRE_TREE,
@@ -186,7 +240,9 @@ PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
            "omnire_ms_neuralbilateral": OMNIRE_MS_NEURALBILATERAL_TREE,
            "omnire_cp4d": OMNIRE_CP4D_TREE,
            "omnire_ms_bilateral_extended":
-               OMNIRE_MS_BILATERAL_EXTENDED_TREE}
+               OMNIRE_MS_BILATERAL_EXTENDED_TREE,
+           "pvg": PVG_TREE,
+           "deformablegs": DEFORMABLEGS_TREE}
 
 # background_init.capacity and trainer.max_steps of the same tree
 FLAGSHIP_BG_CAPACITY = FLAGSHIP_TREE["background_init"]["capacity"]

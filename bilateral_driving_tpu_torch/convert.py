@@ -14,8 +14,11 @@ tools/common.build_real_scene builds from a scene directory: SMPLNodes
 (template, instances_fv, nn_ind, on_mesh_x, point_ids, the pose tracks)
 when SMPL is on, the pedestrians in DeformableNodes when it is off, and
 every appearance model's Affine (the grids, the affine codes' embedding
-and decoder, the neural grids' MLP heads, the CP-4D factor banks) and the
-camera refinements CamPose and CamPosePerturb. An MLP's static `skips`
+and decoder, the neural grids' MLP heads, the CP-4D factor banks), the
+camera refinements CamPose and CamPosePerturb, a PVG Background's taus,
+log betas and velocities, and a DeformableGS Background's network (its
+`deform_net`, a DeformNetwork without instance codes) with the
+contraction box in its statics. An MLP's static `skips`
 leaf is dropped: the port passes skips to encoders.mlp_apply, and every
 MLP carried here has none.
 """

@@ -19,7 +19,7 @@ import torch
 
 from ..core import sh as sh_lib
 from ..models import bilateral, deform, encoders
-from ..scene import smpl_model
+from ..scene import pvg, smpl_model
 from ..train import setup, trainer
 from ..train.trainer import SceneState
 
@@ -210,6 +210,9 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
                  bg_capacity: int, step: int, device="cuda",
                  smpl_verts: int = 6890):
     """Scene parameters of every class of `cfg` drawn from `generator`: the
+    Background of cfg.background_model (PVG's taus over the scaled time
+    axis, life spans and velocities, or DeformableGS's network and
+    contraction box), the rigid and deformable instances cfg turns on, the
     appearance model cfg.affine_model names (grids near the identity, the
     other models' arrays moved off their zero or random init), the camera
     refinements cfg asks for (pose embeddings near zero), and with
@@ -221,8 +224,25 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
     params["Background"], masks["Background"] = _gaussian_params(
         g, scene.bg_means, scene.bg_colors, bg_capacity, cfg.sh_degree,
         device)
+    bg, n_bg = params["Background"], scene.bg_means.shape[0]
+    if cfg.background_model == "pvg":
+        ts = cfg.pvg_time_interval * max(scene.num_frames - 1, 1)
+        bg.update(pvg.init_extras(bg_capacity, n_bg, _u(g, (n_bg,), 0.0, ts),
+                                  device=device))
+        bg["log_betas"] += 0.1 * torch.randn((bg_capacity,),
+                                             generator=g).to(device)
+        bg["velocity"] += 0.3 * torch.randn((bg_capacity, 3),
+                                            generator=g).to(device)
+    elif cfg.background_model == "deformgs":
+        bg["deform_net"] = deform.DeformNetwork().reset_parameters(g).to(
+            device).requires_grad_(False)
+        lo, hi = scene.bg_means.amin(0), scene.bg_means.amax(0)
+        statics["Background"] = {"aabb_center": 0.5 * (lo + hi),
+                                 "aabb_scale": 0.5 * (hi - lo).max()}
+    enabled = {"RigidNodes": cfg.use_rigid,
+               "DeformableNodes": cfg.use_deformable}
     for name, d in scene.inst.items():
-        if name == "SMPLNodes":
+        if name == "SMPLNodes" or not enabled.get(name, False):
             continue
         p, masks[name] = _gaussian_params(g, d["means"], d["colors"],
                                           d["means"].shape[0], cfg.sh_degree,

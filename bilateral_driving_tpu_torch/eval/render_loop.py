@@ -1,6 +1,5 @@
 """Render loop: port of bilateral_driving_tpu/eval/render_loop.py
-(`render_images`, `aggregate_metrics`, `depth_visualizer`; video writing
-waits for the render-CLI slice).
+(`render_images`, `aggregate_metrics`, `save_video`, `depth_visualizer`).
 
 Test images (keys of `neighbor_map`) render with interpolated instance
 poses, bilateral affines (and the neural grids' features) averaged over
@@ -13,6 +12,7 @@ renders zero every other class's opacities.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -20,6 +20,7 @@ import torch
 
 from ..models import bilateral as bilateral_mod
 from ..train import trainer as trainer_mod
+from ..utils import visualization
 from . import metrics as metrics_mod
 
 
@@ -135,10 +136,22 @@ def aggregate_metrics(per_image: List[Dict]) -> Dict[str, float]:
     return out
 
 
-def depth_visualizer(depth: np.ndarray, max_depth: float = 80.0) -> np.ndarray:
-    """Turbo depth colour map (utils/visualization.py:477); needs
-    matplotlib."""
-    import matplotlib.cm as cm
+def save_video(frames: List[np.ndarray], path: str):
+    """Float [0, 1] (H, W, 3) frames as `<path without extension>/0000.png,
+    0001.png, ...`: what the JAX package's save_video writes where no
+    video codec is available (the card has no imageio). Returns the
+    directory."""
+    base = os.path.splitext(path)[0]
+    os.makedirs(base, exist_ok=True)
+    for i, f in enumerate(frames):
+        visualization.save_png(np.asarray(f), os.path.join(base,
+                                                           f"{i:04d}.png"))
+    return base
 
+
+def depth_visualizer(depth: np.ndarray, max_depth: float = 80.0) -> np.ndarray:
+    """Turbo depth colour map (utils/visualization.py:477), near red and
+    far blue, from the table in utils/visualization (matplotlib's
+    cm.turbo)."""
     d = np.clip(depth / max_depth, 0, 1)
-    return cm.turbo(1.0 - d)[..., :3].astype(np.float32)
+    return visualization.turbo(1.0 - d).astype(np.float32)

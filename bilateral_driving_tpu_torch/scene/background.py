@@ -22,10 +22,11 @@ def gaussians(params, mask, cam_origin, step: int,
 
 
 def reg_loss(params, mask, step: int, reg_cfg: dict) -> dict:
-    """Shape regularisers of the live points; the flagship configures only
-    `sharp_shape_reg`: the max / min scale ratio past max_gauss_ratio,
-    every step_interval steps."""
-    unported = set(reg_cfg) - {"sharp_shape_reg"}
+    """Shape regularisers of the live points; the YAMLs configure
+    `sharp_shape_reg` (the max / min scale ratio past max_gauss_ratio,
+    every step_interval steps) and, for PVG, `velocity_reg`, which the
+    trainer computes (scene/pvg.velocity_reg_loss) and this passes by."""
+    unported = set(reg_cfg) - {"sharp_shape_reg", "velocity_reg"}
     if unported:
         raise NotImplementedError(
             f"background regularisers {sorted(unported)} are not ported "

@@ -7,8 +7,9 @@ TrainerConfig; `build_real_scene` loads a scene and builds every class
 from its points. SMPL-class instances become SMPLNodes when
 `trainer.use_smpl` is on and a body model is given (`smpl.model_path`: the
 SMPL pickle, or "synthetic" for the port's own random body); otherwise they
-go to DeformableNodes, as in the JAX package. The synthetic-scene builder
-and the PVG and deformgs backgrounds wait for their slices.
+go to DeformableNodes, as in the JAX package. The Background is vanilla,
+PVG or DeformableGS (`trainer.background_model`). The synthetic-scene
+builder waits for its slice.
 """
 from __future__ import annotations
 
@@ -96,6 +97,7 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
     losses = cfg.get("losses", {})
     dens = cfg.get("density", {})
     render = cfg.get("render", {})
+    pvg = cfg.get("pvg", {})
     den = density.DensityConfig(**{k: v for k, v in dens.items()
                                    if k in density.DensityConfig._fields})
     kw = dict(
@@ -133,6 +135,11 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
         depth_reduction=losses.get("depth_reduction", "mean_on_hit"),
         mask_loss_type=losses.get("mask_loss_type", "safe_bce"),
         max_depth=losses.get("max_depth", 80.0),
+        pvg_cycle=pvg.get("cycle_length", 0.2),
+        pvg_time_interval=pvg.get("time_interval", 0.02),
+        pvg_temporal_smoothing=pvg.get("enable_temporal_smoothing", False),
+        pvg_smooth_probability=pvg.get("smooth_probability", 0.5),
+        pvg_distribution_span=pvg.get("distribution_span", 1.5),
         w_rigid_temporal=losses.get("rigid_temporal", 0.0),
         w_smpl_joint_smooth=losses.get("smpl_joint_smooth", 0.0),
         # presence of the dynamic_region block enables it at the reference's
@@ -172,25 +179,40 @@ def trainer_config_from(cfg: ConfigDict, num_images: int, num_frames: int,
     return trainer.TrainerConfig(**kw)
 
 
-def _background_from_scene(generator, cfg, data: scene_mod.SceneData, tcfg,
-                           device):
-    """The vanilla Background from the scene's lidar and sphere points.
-    Returns (params, mask, statics)."""
-    if tcfg.background_model != "vanilla":
-        raise NotImplementedError(
-            f"background_model={tcfg.background_model!r} is not ported yet: "
-            "the background-variants slice")
+def _background_from_scene(generator, cfg, data: scene_mod.SceneData,
+                           tcfg, device):
+    """The Background of any background_model (vanilla | pvg | deformgs)
+    from the scene's lidar and sphere points. Returns (params, mask,
+    statics)."""
     init = cfg.get("background_init", {})
-    pts = scene_mod.get_init_background(
+    pts, pt_times = scene_mod.get_init_background(
         data, num_samples=init.get("num_lidar_samples", 400_000),
         num_near=init.get("num_near_pts", 50_000),
-        num_far=init.get("num_far_pts", 50_000))
+        num_far=init.get("num_far_pts", 50_000), return_times=True)
     colors = scene_mod.lidar_colors_for_points(data, pts)
     capacity = int(init.get("capacity", max(2 ** 19, 2 * pts.shape[0])))
     capacity = max(capacity, pts.shape[0])
-    params, mask = setup.build_background(
-        generator, capacity, torch.from_numpy(pts).to(device),
-        torch.from_numpy(colors).to(device), sh_degree=tcfg.sh_degree)
+    pts = torch.from_numpy(pts).to(device)
+    colors = torch.from_numpy(colors).to(device)
+    if tcfg.background_model == "pvg":
+        params, mask = setup.build_pvg_background(
+            generator, capacity, pts, colors,
+            t_init=torch.from_numpy(pt_times), sh_degree=tcfg.sh_degree,
+            beta_init=cfg.get("pvg", {}).get("betas_init", 0.1),
+            time_scale=tcfg.pvg_time_interval * max(tcfg.num_frames - 1, 1))
+        return params, mask, {}
+    if tcfg.background_model == "deformgs":
+        aabb = data.aabb()
+        params, statics, mask = setup.build_deformgs_background(
+            generator, capacity, pts, colors, 0.5 * (aabb[0] + aabb[1]),
+            float(np.max(aabb[1] - aabb[0]) / 2.0),
+            sh_degree=tcfg.sh_degree)
+        return params, mask, statics
+    if tcfg.background_model != "vanilla":
+        raise ValueError(
+            f"unknown background_model {tcfg.background_model!r}")
+    params, mask = setup.build_background(generator, capacity, pts, colors,
+                                          sh_degree=tcfg.sh_degree)
     return params, mask, {}
 
 

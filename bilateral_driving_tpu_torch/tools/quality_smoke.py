@@ -22,8 +22,9 @@ the device and its nvidia-smi name and power limit) at the repo root:
 QUALITY_torch_smpl.json for omnire_ms_bilateral, QUALITY_torch_<config>.json
 (without its "omnire_" prefix) for another preset. `--runs N` (N > 1)
 trains N runs of the same command side by side and writes
-QUALITY_torch_spread.json instead: each run's metrics, their spread (max -
-min) and mean, and no steps/s (the runs share the card and the host).
+QUALITY_torch_spread.json instead (or --out): each run's metrics, their
+spread (max - min) and mean, whether every metric of every run is
+identical, and no steps/s (the runs share the card and the host).
 """
 from __future__ import annotations
 
@@ -239,6 +240,9 @@ def main(argv=None):
             "mean": {k: sum(r[0][k] for r in runs) / len(runs)
                      for k in keys},
             "peak_mem_bytes": [r[1]["peak_mem_bytes"] for r in runs],
+            # every metric of every run equal to the last digit
+            "identical": all(r[0][k] == runs[0][0][k] for r in runs
+                             for k in keys),
         }
     with open(out, "w") as f:
         json.dump(artifact, f, indent=2)

@@ -22,7 +22,7 @@ differ from the first launch.
 
     python -m bilateral_driving_tpu_torch.tools.repro_probe \
         [--steps 16] [--repeats 20] [--config omnire_ms_bilateral] \
-        [--out repro_probe.json]
+        [--modes default,deterministic,plain_splat] [--out repro_probe.json]
 
 Prints one JSON line (and writes it to --out) with the card's nvidia-smi
 name and power limit.
@@ -124,6 +124,8 @@ def main(argv=None):
     p.add_argument("--config", default="omnire_ms_bilateral")
     p.add_argument("--steps", type=int, default=16)
     p.add_argument("--repeats", type=int, default=20)
+    p.add_argument("--modes", default=",".join(MODES),
+                   help="comma-separated subset of " + ", ".join(MODES))
     p.add_argument("--out", default=None)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -132,7 +134,11 @@ def main(argv=None):
     result = {"config": args.config, "steps": args.steps,
               "nvidia_smi": quality_smoke.nvidia_smi(), "modes": {}}
     capture = {}
-    for mode in MODES:
+    modes = args.modes.split(",")
+    if "default" not in modes or set(modes) - set(MODES):
+        raise ValueError(f"--modes {args.modes}: the default mode captures "
+                         f"the splat's input; choose from {MODES}")
+    for mode in modes:
         runs = []
         with contextlib.ExitStack() as stack:
             if mode != "default":

@@ -21,8 +21,10 @@ continues from a checkpoint exactly as the uninterrupted run would.
 The run directory `<output_root>/<run_name>` receives config.json,
 metrics.json, log.txt, checkpoints/, test_metrics.json (the first 20 test
 images) and train_summary.json (steps, steps/s, peak device memory,
-kernel launch counts, refinements, guards). Synthetic mode, the parallel
-flags, TensorBoard/wandb, the live viewer and `logging.vis_freq` snapshots
+kernel launch counts, refinements, guards); every `logging.vis_freq` steps
+(from step 0) an images/step_<step>.png snapshot of one frame's cameras,
+ground truth over render over depth over error (utils/visualization).
+Synthetic mode, the parallel flags, TensorBoard/wandb and the live viewer
 wait for later slices.
 """
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..eval import render_loop
 from ..ops import pipeline
 from ..train import checkpoint, trainer
 from ..utils import config as config_lib
+from ..utils import visualization
 from ..utils.logging import MetricLogger, logger, setup_logging
 from . import common
 
@@ -143,8 +146,7 @@ def main(argv=None):
     max_steps = tcfg.max_steps
     ckpt_every = cfg.get_path("logging.ckpt_every", 10000)
     log_every = cfg.get_path("logging.log_every", 100)
-    if int(cfg.get_path("logging.vis_freq", 0) or 0) > 0:
-        logger.info("logging.vis_freq snapshots are not ported yet; skipped")
+    vis_freq = int(cfg.get_path("logging.vis_freq", 0) or 0)
     refresh_every = int(cfg.get_path("sampler.refresh_every", 0) or 0)
     refresh_downscale = int(cfg.get_path("sampler.refresh_downscale", 4))
     flush_every = max(int(cfg.get_path("logging.metrics_flush_every",
@@ -160,6 +162,27 @@ def main(argv=None):
         if rs_double <= 0:
             return 1
         return 2 ** max(rs_times - step // rs_double, 0)
+
+    def visualize(step: int) -> None:
+        """Every camera of a frame that sweeps the sequence over the run,
+        tiled as ground truth, render, depth and error rows
+        (tools/train.py:196-246 of the reference)."""
+        n_vis = max(max_steps // vis_freq, 1)
+        frame = int(np.linspace(0, data.num_frames, n_vis + 1,
+                                endpoint=False, dtype=int)[step // vis_freq])
+        idxs = np.flatnonzero(data.frame_of_image == frame)
+        res = render_loop.render_images(tcfg, state, statics, data, idxs,
+                                        neighbor_map=neighbor_map,
+                                        compute_metrics=True)
+        res = {k: [x.cpu().numpy() for x in res[k]]
+               for k in ("rgbs", "gt_rgbs", "depths")}
+        names = [data.camera_names()[int(data.cam_of_image[i])]
+                 for i in idxs]
+        grid = visualization.snapshot_grid(res, names, data.dataset,
+                                           max_depth=tcfg.max_depth)
+        os.makedirs(os.path.join(log_dir, "images"), exist_ok=True)
+        visualization.save_png(grid, os.path.join(log_dir, "images",
+                                                  f"step_{step}.png"))
 
     def refresh_error_buffer() -> None:
         """Every train image's error at low resolution, so rarely drawn
@@ -254,11 +277,11 @@ def main(argv=None):
 
     def window_len(s: int) -> int:
         """Steps from s in one window: at most steps_per_dispatch, ending
-        before the next pre-step event (error-buffer refresh, resolution
-        change) and right after the next post-step event (log, flush,
-        checkpoint)."""
+        before the next pre-step event (snapshot, error-buffer refresh,
+        resolution change) and right after the next post-step event (log,
+        flush, checkpoint)."""
         k = min(spd, max_steps - s)
-        for prd in (refresh_every, rs_double):
+        for prd in (refresh_every, rs_double, vis_freq):
             if prd > 0:
                 k = min(k, prd - s % prd)
         for prd in (log_every, flush_every, ckpt_every):
@@ -271,6 +294,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     t_warm, warm_step, ckpt_s = None, None, 0.0
     while step < max_steps:
+        if vis_freq > 0 and step % vis_freq == 0:
+            visualize(step)
         if refresh_every > 0 and step > 0 and step % refresh_every == 0:
             refresh_error_buffer()
         ds = sched_downscale(step)

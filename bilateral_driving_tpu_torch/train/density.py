@@ -1,6 +1,6 @@
 """Adaptive density control on fixed-capacity classes: port of
-bilateral_driving_tpu/train/density.py for the classes the flagship trains
-(no PVG temporal densification).
+bilateral_driving_tpu/train/density.py, PVG's temporal densification and
+position-aware size factor included.
 
 Each class keeps a fixed capacity and a liveness mask, so densification is
 array work: per-point statistics (accumulated screen-gradient norm,
@@ -9,9 +9,9 @@ duplicate children placed into dead slots by rank (capacity overflow drops
 the extras), an opacity reset, and the Adam moments of every touched slot
 zeroed in the optimizer's state instead of optimizer surgery.
 
-Split offsets are drawn from an explicit torch.Generator; the JAX package
-draws them from jax.random, so the two agree on everything but those
-samples.
+Split offsets (and PVG children's times) are drawn from an explicit
+torch.Generator; the JAX package draws them from jax.random, so the two
+agree on everything but those samples.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ class DensityConfig(NamedTuple):
     reset_alpha_value: float = 0.01
     refine_interval: int = 100
     warmup_steps: int = 500
-    # PVG temporal densification (not ported yet: the PVG slice)
+    # PVG temporal densification (reference pvg.py:149-199)
     densify_t_grad_thresh: float = 0.002
     densify_t_size_thresh: float = 0.01
     no_time_split: bool = True
@@ -55,7 +55,8 @@ class DensityStats(NamedTuple):
     grad_norm: torch.Tensor   # (C,) accumulated screen-gradient norms
     vis_count: torch.Tensor   # (C,)
     max_radii: torch.Tensor   # (C,) largest radius / image size
-    t_grad: torch.Tensor      # (C,) zeros (PVG's |dL/dtau| later)
+    t_grad: torch.Tensor      # (C,) accumulated |dL/dtau| (PVG; zeros
+    #                           for classes without a time axis)
 
     @staticmethod
     def zeros(capacity: int, device="cuda"):
@@ -64,9 +65,9 @@ class DensityStats(NamedTuple):
 
 
 def accumulate_stats(stats: DensityStats, grad2d, radii,
-                     last_size: float) -> DensityStats:
+                     last_size: float, t_grad=None) -> DensityStats:
     """grad2d (C, 2) this step's screen gradients, radii (C,) this step's
-    pixel radii."""
+    pixel radii, t_grad (C,) this step's dL/dtau (PVG only)."""
     vis = (radii > 0).to(torch.float32)
     g = torch.linalg.vector_norm(grad2d, dim=-1) * vis
     return DensityStats(
@@ -74,7 +75,8 @@ def accumulate_stats(stats: DensityStats, grad2d, radii,
         vis_count=stats.vis_count + vis,
         max_radii=torch.maximum(stats.max_radii,
                                 radii.to(torch.float32) / last_size),
-        t_grad=stats.t_grad)
+        t_grad=(stats.t_grad if t_grad is None
+                else stats.t_grad + torch.abs(t_grad) * vis))
 
 
 def _place(data: dict, occupied, new_vals: dict, want):
@@ -101,36 +103,67 @@ def _place(data: dict, occupied, new_vals: dict, want):
     return out, placed, want.sum() - ok.sum()
 
 
+def _gamma(means, scene_origin, scene_scale: float):
+    """PVG's position-aware size factor (pvg.py:90-98): points far from
+    the scene origin may be proportionally larger."""
+    origin = torch.tensor(scene_origin, dtype=means.dtype,
+                          device=means.device)
+    g = torch.linalg.vector_norm(means - origin, dim=-1) * scene_scale - 1.0
+    return torch.where(g <= 1.0, torch.ones_like(g), g) / scene_scale
+
+
 def refine(generator: torch.Generator, params: dict, aux: dict, alive,
            stats: DensityStats, step: int, scene_scale: float,
-           cfg: DensityConfig, num_train_images: int = 1, extra_cull=None):
+           cfg: DensityConfig, num_train_images: int = 1, extra_cull=None,
+           pvg_cycle: float | None = None,
+           scene_origin: tuple = (0.0, 0.0, 0.0)):
     """One refinement pass over a class. `params`: the class's parameter
     dict (per-point keys are refined, the rest pass through); `aux`:
     per-point arrays copied to children (point_ids); `extra_cull`: a
-    class-specific cull mask. Returns (params, aux, alive, touched, info),
-    new tensors throughout."""
+    class-specific cull mask; `pvg_cycle`: set for a PVG class, which
+    turns on temporal densification, the position-aware size factor
+    around `scene_origin` and densify_until_num_points. Returns (params,
+    aux, alive, touched, info), new tensors throughout."""
     cap = alive.shape[0]
     mask_dtype = alive.dtype
     alive = alive.bool()
     pt = {k: v for k, v in params.items() if k in PER_POINT_KEYS}
     rest = {k: v for k, v in params.items() if k not in PER_POINT_KEYS}
     data = {**pt, **{f"aux/{k}": v for k, v in aux.items()}}
+    is_pvg = pvg_cycle is not None and "taus" in pt
 
     scaling = torch.exp(pt["log_scales"])
     max_scale = torch.amax(scaling, dim=-1)
     avg_grad = stats.grad_norm / torch.clamp(stats.vis_count, min=1.0)
     high_grads = (avg_grad > cfg.densify_grad_thresh) & alive
+    gamma = _gamma(pt["means"], scene_origin, scene_scale) if is_pvg \
+        else 1.0
 
     reset_interval = cfg.reset_alpha_interval
     gate = max(num_train_images, cfg.refine_interval)
     do_densify = (step < cfg.stop_split_at
                   and (step % reset_interval) > gate
                   and step > cfg.warmup_steps)
+    if is_pvg:
+        # stop growing a saturated PVG class (pvg.py:160)
+        do_densify = do_densify and int(alive.sum()) < \
+            cfg.densify_until_num_points
 
-    big = max_scale > cfg.densify_size_thresh * scene_scale
+    big = max_scale > cfg.densify_size_thresh * scene_scale * gamma
     screen_big = stats.max_radii > cfg.split_screen_size
     splits = big | (screen_big & (step < cfg.stop_screen_size_at))
     dups = ~big
+    if is_pvg:
+        # temporal candidates (pvg.py:166-199): a high |dL/dtau| splits
+        # along time where the temporal extent is past the threshold and
+        # duplicates otherwise
+        scaling_t = torch.exp(pt["log_betas"])
+        avg_t_grad = stats.t_grad / torch.clamp(stats.vis_count, min=1.0)
+        high_t = (avg_t_grad > cfg.densify_t_grad_thresh) & alive
+        high_grads = high_grads | high_t
+        splits_t = (scaling_t > cfg.densify_t_size_thresh) & high_t
+        splits = splits | splits_t
+        dups = dups | ((scaling_t <= cfg.densify_t_size_thresh) & high_t)
     splits = splits & high_grads & do_densify
     dups = dups & high_grads & do_densify
 
@@ -138,6 +171,11 @@ def refine(generator: torch.Generator, params: dict, aux: dict, alive,
     occupied = alive
     placed_any = torch.zeros(cap, dtype=torch.bool, device=alive.device)
     new_log_scale = torch.log(torch.clamp(scaling / 1.6, min=1e-10))
+    # a t-triggered PVG split leaves the spatial scale as it is
+    # (pvg.py:339-347)
+    child_log_scale = (torch.where(big[:, None], new_log_scale,
+                                   pt["log_scales"]) if is_pvg
+                       else new_log_scale)
     rot = transforms.quat_to_rotmat(pt["quats"])
     n_dropped = torch.zeros((), dtype=torch.long, device=alive.device)
     for _ in range(cfg.n_split_samples):
@@ -146,7 +184,21 @@ def refine(generator: torch.Generator, params: dict, aux: dict, alive,
         offset = torch.einsum("nij,nj->ni", rot, scaling * eps)
         child = dict(data)
         child["means"] = pt["means"] + offset
-        child["log_scales"] = new_log_scale
+        child["log_scales"] = child_log_scale
+        if is_pvg:
+            # children draw a time from the parent's temporal Gaussian and
+            # ride the vibration to the matching position (pvg.py:329-337)
+            t_eps = torch.randn((cap,), generator=generator,
+                                device=generator.device).to(
+                                    alive.device) * scaling_t
+            child["taus"] = pt["taus"] + t_eps
+            v_eff = pt["velocity"] * torch.exp(
+                -0.5 * scaling_t / pvg_cycle)[:, None]
+            child["means"] = child["means"] + v_eff * t_eps[:, None]
+            child["log_betas"] = (
+                pt["log_betas"] if cfg.no_time_split
+                else torch.where(splits_t, torch.log(torch.clamp(
+                    scaling_t / 1.6, min=1e-10)), pt["log_betas"]))
         data, placed, dropped = _place(data, occupied, child, splits)
         occupied = occupied | placed
         placed_any = placed_any | placed
@@ -164,8 +216,11 @@ def refine(generator: torch.Generator, params: dict, aux: dict, alive,
     # cull
     opac = torch.sigmoid(data["logit_opacities"][:, 0])
     culls = opac < cfg.cull_alpha_thresh
+    # PVG's gamma again, over the grown set (pvg.py:169-174)
+    cull_gamma = (_gamma(data["means"], scene_origin, scene_scale)
+                  if is_pvg else 1.0)
     toobig_world = (torch.amax(torch.exp(data["log_scales"]), dim=-1)
-                    > cfg.cull_scale_thresh * scene_scale)
+                    > cfg.cull_scale_thresh * scene_scale * cull_gamma)
     toobig_screen = stats.max_radii > cfg.cull_screen_size
     if step > reset_interval:
         culls = culls | toobig_world | (

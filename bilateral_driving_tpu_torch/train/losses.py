@@ -1,11 +1,10 @@
-"""The flagship's losses: port of the parts of
-bilateral_driving_tpu/train/losses.py that omnire_ms_bilateral reads (L1,
-SSIM, the sky-opacity BCEs, the lidar depth loss) and PSNR.
+"""The trainers' losses: port of bilateral_driving_tpu/train/losses.py
+(L1, SSIM, the sky-opacity BCEs, the lidar depth loss in every form the
+YAMLs set, opacity entropy, inverse-depth smoothness) and PSNR.
 
 SSIM is the 11-tap separable Gaussian window applied as two banded matrix
 products, with the window shrunk to the image where the image is smaller,
-as the JAX package computes it. Other losses wait for the slice whose
-configuration weights them.
+as the JAX package computes it.
 """
 from __future__ import annotations
 
@@ -108,20 +107,61 @@ def bce(pred, target, eps: float = 1e-6):
 def depth_loss(pred, gt, hit_mask=None, loss_type: str = "l1",
                normalize: bool = False, use_inverse_depth: bool = False,
                max_depth: float = 80.0, reduction: str = "mean_on_hit"):
-    """Lidar depth loss; the flagship takes l1, unnormalized, direct depth,
-    mean over the valid hits."""
-    if (loss_type != "l1" or normalize or use_inverse_depth
-            or reduction != "mean_on_hit"):
-        raise NotImplementedError(
-            "depth_loss: only the flagship's l1 / mean_on_hit form is ported "
-            "yet: the loss-variants slice")
+    """Lidar depth loss (losses.py:91-176 DepthLoss): l1, l2 or smooth l1,
+    optionally on depths normalized by max_depth and/or inverted, over the
+    valid hits; reduced as a mean over the hits, a mean over the image
+    (mean_on_hw), a sum, or not at all."""
     pred = pred.reshape(gt.shape)
     if hit_mask is not None:
         pred = pred * hit_mask
         gt = gt * hit_mask
     valid = ((gt > 0.01) & (gt < max_depth) & (pred > 1e-4)).to(pred.dtype)
-    err = torch.abs(pred - gt) * valid
-    return masked_mean(err, valid)
+    if normalize:
+        pred = torch.clamp(pred / max_depth, 1e-6, 1.0)
+        gt = torch.clamp(gt / max_depth, 1e-6, 1.0)
+    if use_inverse_depth:
+        # a pixel left out (no hit, or nothing rendered) has depth 0 and
+        # would invert to inf; the JAX package multiplies its NaN error by
+        # 0, which keeps the value but gives the depth a NaN gradient.
+        # Here it inverts 1 and gets 0 of both, the same wherever the JAX
+        # package's gradient is finite (a port-only guard)
+        pred = 1.0 / torch.where(valid > 0, pred, torch.ones_like(pred))
+        gt = 1.0 / torch.where(valid > 0, gt, torch.ones_like(gt))
+    if loss_type == "l1":
+        err = torch.abs(pred - gt)
+    elif loss_type == "l2":
+        err = (pred - gt) ** 2
+    elif loss_type == "smooth_l1":
+        d = torch.abs(pred - gt)
+        err = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+    else:
+        raise ValueError(loss_type)
+    err = err * valid
+    if reduction == "mean_on_hit":
+        return masked_mean(err, valid)
+    if reduction == "mean_on_hw":
+        return torch.sum(err) / (gt.shape[0] * gt.shape[1])
+    if reduction == "sum":
+        return torch.sum(err)
+    return err
+
+
+def opacity_entropy(opacity):
+    """-o log o regularizer (base.py:569-575)."""
+    o = torch.clamp(opacity, 1e-6, 1.0 - 1e-6)
+    return torch.mean(-o * torch.log(o))
+
+
+def inverse_depth_smoothness(inv_depth, image):
+    """kornia.losses.inverse_depth_smoothness_loss (base.py:576-585):
+    edge-aware first-order smoothness; inv_depth (H, W), image (H, W, 3)."""
+    didx = torch.abs(inv_depth[:, 1:] - inv_depth[:, :-1])
+    didy = torch.abs(inv_depth[1:, :] - inv_depth[:-1, :])
+    wx = torch.exp(-torch.mean(torch.abs(image[:, 1:] - image[:, :-1]),
+                               dim=-1))
+    wy = torch.exp(-torch.mean(torch.abs(image[1:, :] - image[:-1, :]),
+                               dim=-1))
+    return torch.mean(didx * wx) + torch.mean(didy * wy)
 
 
 def psnr(pred, gt):

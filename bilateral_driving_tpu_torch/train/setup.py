@@ -1,12 +1,11 @@
 """Scene and model construction from a scene's initial points: port of
-bilateral_driving_tpu/train/setup.py for the vanilla Background,
-RigidNodes, SMPLNodes, DeformableNodes, EnvLight, every appearance model
-(affine codes, the single, multi-scale, neural and CP-4D bilateral grids)
-and camera refinement.
+bilateral_driving_tpu/train/setup.py for the vanilla, PVG and DeformableGS
+Backgrounds, RigidNodes, SMPLNodes, DeformableNodes, EnvLight, every
+appearance model (affine codes, the single, multi-scale, neural and CP-4D
+bilateral grids) and camera refinement.
 
 Every random draw (quaternions, colours, instance codes, the deformation
-network) comes from an explicit torch.Generator; the PVG and deformgs
-builders wait for their slices.
+networks) comes from an explicit torch.Generator.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ import torch
 from ..core import sampling, sh as sh_lib
 from ..models import affine as affine_mod
 from ..models import bilateral, camera_opt, deform, encoders, sky as sky_mod
+from ..scene import pvg as pvg_mod
 from ..scene import smpl_model, smpl_node
 
 INIT_OPACITY = 0.1
@@ -80,6 +80,38 @@ def build_background(generator, capacity: int, means, colors,
                      sh_degree: int = 3):
     return gaussian_dict(generator, capacity, means, colors,
                          knn_scales(means), sh_degree)
+
+
+def build_pvg_background(generator, capacity: int, means, colors,
+                         t_init=None, sh_degree: int = 3,
+                         beta_init: float = 0.1, time_scale: float = 1.0):
+    """The vanilla Background plus PVG's taus, log betas and velocity;
+    t_init: each point's normalized observation time, scaled into taus by
+    time_scale = time_interval * (num_frames - 1) (pvg.py:47, 53)."""
+    params, mask = build_background(generator, capacity, means, colors,
+                                    sh_degree)
+    params.update(pvg_mod.init_extras(capacity, means.shape[0], t_init,
+                                      beta_init, time_scale, means.device))
+    return params, mask
+
+
+def build_deformgs_background(generator, capacity: int, means, colors,
+                              aabb_center, aabb_radius, sh_degree: int = 3,
+                              net_depth: int = 8, net_width: int = 256):
+    """The DeformableGS Background (deformgs.py): canonical Gaussians and
+    a DeformNetwork (U(+-1/sqrt(fan_in)) weights) under `deform_net`;
+    statics carry the contraction's AABB centre and scale. Returns
+    (params, statics, mask)."""
+    params, mask = build_background(generator, capacity, means, colors,
+                                    sh_degree)
+    dev = means.device
+    params["deform_net"] = deform.DeformNetwork(
+        depth=net_depth, width=net_width).reset_parameters(generator).to(dev)
+    statics = {"aabb_center": torch.as_tensor(aabb_center,
+                                              dtype=torch.float32,
+                                              device=dev),
+               "aabb_scale": torch.tensor(float(aabb_radius), device=dev)}
+    return params, statics, mask
 
 
 def build_rigid(generator, capacity: int, means, colors, point_ids,

@@ -1,6 +1,7 @@
 """Scene trainer: port of bilateral_driving_tpu/train/trainer.py for the
-vanilla background with rigid, SMPL and deformable nodes, the EnvLight sky,
-every appearance model and camera refinement (configs.PRESETS).
+vanilla, PVG and DeformableGS backgrounds with rigid, SMPL and deformable
+nodes, the EnvLight sky, every appearance model and camera refinement
+(configs.PRESETS).
 
 forward = camera refinement -> per-class Gaussians -> concat -> tiled
 rasterize -> EnvLight sky compositing -> appearance (affine codes, or the
@@ -9,9 +10,10 @@ step is compute_grads (forward, the loss stack and autograd, with a zeros
 `means2d_dummy` whose gradient is the per-Gaussian screen gradient) then
 apply_grads_and_refine (Adam per parameter group at its scheduled rate,
 densification statistics and, every refine_interval steps, refinement of
-every class but the fixed-size SMPLNodes).
-Other configurations' branches raise NotImplementedError naming the slice
-they wait for.
+every class but the fixed-size SMPLNodes; PVG's temporal densification
+with it). PVG's temporal smoothing draws its offset from the state's
+generator. Other configurations' branches raise NotImplementedError naming
+the slice they wait for.
 
 The JAX trainer is pure; here the state is updated in place: the optimizer
 steps the parameter tensors and refinement writes into them, so the
@@ -28,14 +30,14 @@ from ..models import affine as affine_mod
 from ..models import bilateral, camera_opt, sky as sky_mod
 from ..ops import pipeline
 from ..ops.camera import viewmat_from_c2w
-from ..scene import background, deformable, nodes, rigid, smpl_node
+from ..scene import background, deformable, nodes, pvg, rigid, smpl_node
 from . import density, losses, schedules
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     # class toggles
-    background_model: str = "vanilla"      # vanilla (pvg | deformgs later)
+    background_model: str = "vanilla"      # vanilla | pvg | deformgs
     use_rigid: bool = False
     use_smpl: bool = False
     use_deformable: bool = False
@@ -55,6 +57,14 @@ class TrainerConfig:
     isect_capacity: int = 2 ** 20
     sh_degree: int = 3
     sh_degree_interval: int = 1000
+
+    # PVG's temporal model (pvg.yaml pvg block): normalized batch times
+    # map onto the scaled axis, pvg_time_interval per frame (pvg.py:46-47)
+    pvg_cycle: float = 0.2
+    pvg_time_interval: float = 0.02
+    pvg_temporal_smoothing: bool = False
+    pvg_smooth_probability: float = 0.5
+    pvg_distribution_span: float = 1.5     # in frame intervals
 
     # appearance and sky
     ms_grid: tuple = bilateral.DEFAULT_MS_GRID
@@ -138,9 +148,9 @@ def _later(what: str, slice_: str):
 
 
 def _check_ported(cfg: TrainerConfig):
-    if cfg.background_model != "vanilla":
-        raise _later(f"background_model={cfg.background_model!r}",
-                     "the background-variants slice")
+    if cfg.background_model not in ("vanilla", "pvg", "deformgs"):
+        raise ValueError(f"unknown background_model "
+                         f"{cfg.background_model!r}")
     if cfg.use_smpl and cfg.use_voxel_deformer:
         raise _later("the voxel skinning deformer", "the voxel-deformer slice")
     if cfg.sky_model != "envlight":
@@ -168,15 +178,42 @@ def merge_statics(statics, aux):
 
 def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
                       step: int, frame: int, t: float,
-                      in_test_set: bool = False, opacity_multiplier=None):
+                      in_test_set: bool = False, opacity_multiplier=None,
+                      time_offset=0.0):
     """Per-class Gaussians + concat. `statics[name]` already holds that
     class's aux arrays (see merge_statics). `opacity_multiplier` (N,)
     scales the concatenated opacities (the per-class decomposed renders
-    zero every class but one)."""
+    zero every class but one). `time_offset`: PVG's temporal smoothing
+    offset of the normalized time (a float or a 0-d tensor)."""
     _check_ported(cfg)
-    bundles = {"Background": background.gaussians(
-        params["Background"], masks["Background"], cam_origin, step,
-        background.BackgroundConfig(cfg.sh_degree, cfg.sh_degree_interval))}
+    bundles = {}
+    bg = params["Background"]
+    if cfg.background_model == "vanilla":
+        bundles["Background"] = background.gaussians(
+            bg, masks["Background"], cam_origin, step,
+            background.BackgroundConfig(cfg.sh_degree,
+                                        cfg.sh_degree_interval))
+    elif cfg.background_model == "pvg":
+        # rendered at t1 = t + offset with a linear velocity correction
+        # back toward the train time t (delta_t = -offset), on the scaled
+        # time axis (pvg.py:375-389)
+        ts = cfg.pvg_time_interval * max(cfg.num_frames - 1, 1)
+        # the time in the parameters' precision, as the JAX package forms it
+        tt = torch.full((), t, dtype=bg["taus"].dtype,
+                        device=bg["taus"].device)
+        bundles["Background"] = pvg.gaussians(
+            bg, masks["Background"], cam_origin, step,
+            (tt + time_offset) * ts,
+            pvg.PVGConfig(cfg.sh_degree, cfg.sh_degree_interval,
+                          cycle=cfg.pvg_cycle),
+            smooth_delta_t=-time_offset * ts)
+    else:
+        st = statics.get("Background", {})
+        bundles["Background"] = deformable.deformgs_gaussians(
+            bg, bg["deform_net"], masks["Background"], cam_origin, step, t,
+            st["aabb_center"], st["aabb_scale"],
+            deformable.DeformableConfig(cfg.sh_degree,
+                                        cfg.sh_degree_interval))
     if cfg.use_rigid:
         bundles["RigidNodes"] = rigid.gaussians(
             params["RigidNodes"], statics["RigidNodes"], masks["RigidNodes"],
@@ -203,7 +240,8 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
 
 def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
             in_test_set: bool = False, novel_view: bool = False,
-            neighbor_idx=None, means2d_dummy=None, opacity_multiplier=None):
+            neighbor_idx=None, means2d_dummy=None, opacity_multiplier=None,
+            time_offset=0.0):
     """Render one camera, differentiably where grad mode is on.
 
     batch: camera_to_world (4, 4), intrinsics (3, 3), pixels (H, W, 3),
@@ -214,7 +252,8 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     `neighbor_idx` lists the training images whose bilateral grids are
     averaged, and the affine codes take their mean embedding.
     `means2d_dummy`: (N, 2) zeros whose gradient is the screen-space
-    gradient of each Gaussian; `opacity_multiplier`: see collect_gaussians.
+    gradient of each Gaussian; `opacity_multiplier` and `time_offset`: see
+    collect_gaussians.
     """
     h, w = batch["pixels"].shape[:2]
     c2w = batch["camera_to_world"]
@@ -230,7 +269,8 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     frame = int(batch["frame_idx"])
     merged, labels = collect_gaussians(
         cfg, params, statics, masks, c2w[:3, 3], step, frame,
-        float(batch["normed_time"]), in_test_set, opacity_multiplier)
+        float(batch["normed_time"]), in_test_set, opacity_multiplier,
+        time_offset)
 
     rcfg = pipeline.RasterizeConfig(
         near_plane=cfg.near_plane, far_plane=cfg.far_plane,
@@ -328,9 +368,6 @@ def _regs(pairs) -> dict:
 def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
                    batch, step: int) -> Dict[str, torch.Tensor]:
     """The loss stack, each term weighted."""
-    if cfg.w_opacity_entropy > 0 or cfg.w_inverse_depth_smoothness > 0:
-        raise _later("opacity-entropy and depth-smoothness losses",
-                     "the loss-variants slice")
     if cfg.use_rigid and cfg.w_rigid_temporal > 0:
         raise _later("rigid temporal smoothness", "the loss-variants slice")
     loss = {}
@@ -373,6 +410,15 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
             active, cfg.w_dynamic_region * l1_sum
             / torch.clamp(cnt * 3.0, min=1.0), torch.zeros_like(l1_sum))
 
+    if cfg.w_opacity_entropy > 0:
+        loss["opacity_entropy"] = cfg.w_opacity_entropy * \
+            losses.opacity_entropy(outputs["opacity"][..., 0])
+    if cfg.w_inverse_depth_smoothness > 0:
+        inv_d = 1.0 / (outputs["depth"][..., 0] + 1e-5)
+        loss["inverse_depth_smoothness"] = \
+            cfg.w_inverse_depth_smoothness * losses.inverse_depth_smoothness(
+                inv_d, pixels)
+
     aff = cfg.affine_model
     if aff in ("multiscale_bilateral", "multiscale_neural_bilateral"):
         loss["affine"] = cfg.w_affine * bilateral.multiscale_tv_loss(
@@ -394,11 +440,17 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
 
     if cfg.background_reg:
         regs = _regs(cfg.background_reg)
-        regs.pop("velocity_reg", None)          # PVG backgrounds only
+        vel = regs.pop("velocity_reg", None)    # PVG backgrounds only
         for k, v in background.reg_loss(params["Background"],
                                         masks["Background"], step,
                                         regs).items():
             loss[f"Background_{k}"] = v
+        if vel is not None and cfg.background_model == "pvg":
+            n_bg = masks["Background"].shape[0]
+            loss["Background_velocity_reg"] = pvg.velocity_reg_loss(
+                params["Background"], masks["Background"],
+                outputs["info"]["radii"][:n_bg], vel.get("w", 0.001),
+                pvg.PVGConfig(cycle=cfg.pvg_cycle))
     frame = int(batch["frame_idx"])
     if cfg.use_smpl and cfg.w_smpl_joint_smooth > 0:
         loss["SMPLNodes_joint_smooth"] = smpl_node.joint_smoothness_loss(
@@ -530,9 +582,28 @@ def init_state(cfg: TrainerConfig, params, masks, aux=None, step: int = 0,
 # --------------------------------------------------------------------------
 
 
-def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch):
+def temporal_offset(cfg: TrainerConfig, generator: torch.Generator):
+    """PVG's temporal smoothing offset of the normalized time: with
+    probability pvg_smooth_probability a draw from +-distribution_span
+    frame intervals, else 0 (pvg.py:375-389); a 0-d tensor on the
+    generator's device (no host sync), or 0.0 without smoothing."""
+    if not (cfg.background_model == "pvg" and cfg.pvg_temporal_smoothing):
+        return 0.0
+    u = torch.rand((2,), generator=generator, device=generator.device)
+    bound = cfg.pvg_distribution_span / max(cfg.num_frames - 1, 1)
+    offs = (2.0 * u[1] - 1.0) * bound
+    return torch.where(u[0] < cfg.pvg_smooth_probability, offs,
+                       torch.zeros_like(offs))
+
+
+def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch,
+                  time_offset=None):
     """Gradients of one image: (total, loss dict, outputs, grads by leaf
-    path, screen-space gradient (N, 2) of the concatenated Gaussians)."""
+    path, screen-space gradient (N, 2) of the concatenated Gaussians).
+    `time_offset`: PVG's smoothing offset, drawn from the state's
+    generator when None."""
+    if time_offset is None:
+        time_offset = temporal_offset(cfg, state.generator)
     full_statics = merge_statics(statics, state.aux)
     n_total = sum(state.masks[n].shape[0] for n in gaussian_classes(cfg))
     dev = state.masks["Background"].device
@@ -540,7 +611,8 @@ def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch):
     with torch.enable_grad():
         dummy = torch.zeros((n_total, 2), device=dev, requires_grad=True)
         outputs = forward(cfg, state.params, full_statics, state.masks, batch,
-                          state.step, means2d_dummy=dummy)
+                          state.step, means2d_dummy=dummy,
+                          time_offset=time_offset)
         loss = compute_losses(cfg, state.params, full_statics, state.masks,
                               outputs, batch, state.step)
         total = sum(loss.values())
@@ -575,11 +647,15 @@ def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
     last_size = float(max(h, w))
     grad_scale = torch.tensor([w / 2.0, h / 2.0], device=g_dummy.device)
     offset = 0
+    is_pvg = cfg.background_model == "pvg"
     for name in gaussian_classes(cfg):
         c = state.masks[name].shape[0]
+        # |dL/dtau| drives PVG's temporal densification (pvg.py:113-125)
+        t_grad = (g_params["Background/taus"]
+                  if is_pvg and name == "Background" else None)
         state.stats[name] = density.accumulate_stats(
             state.stats[name], g_dummy[offset:offset + c] * grad_scale,
-            radii[offset:offset + c], last_size)
+            radii[offset:offset + c], last_size, t_grad=t_grad)
         offset += c
 
     step = state.step
@@ -599,7 +675,9 @@ def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
             p, a, alive, touched, info = density.refine(
                 state.generator, params, state.aux[name], state.masks[name],
                 state.stats[name], step, cfg.scene_scale, cfg.density,
-                num_train_images=cfg.num_images, extra_cull=extra_cull)
+                num_train_images=cfg.num_images, extra_cull=extra_cull,
+                pvg_cycle=(cfg.pvg_cycle if is_pvg and name == "Background"
+                           else None), scene_origin=cfg.scene_origin)
             for k in density.PER_POINT_KEYS & set(params):
                 params[k].copy_(p[k])
             state.aux[name] = a

@@ -8,10 +8,12 @@ train.trainer.forward), takes flagship training steps on it
 pedestrians and the single bilateral grid) and omnire (the affine
 appearance codes with camera refinement), takes a step of each other
 appearance model (the neural, multi-scale neural and CP-4D grids, the
-multi-scale grids with the cycle loss), trains, resumes and evaluates a
-scene from disk through the port's CLI (tools.train, tools.eval) with
-every preset, and holds every hand-written kernel of those paths against
-its plain PyTorch version.
+multi-scale grids with the cycle loss) and of the PVG and DeformableGS
+backgrounds, trains, resumes and evaluates a scene from disk through the
+port's CLI (tools.train, tools.eval) with every preset, renders the
+trained run's splits and a novel trajectory (tools.render), and holds
+every hand-written kernel of those paths against its plain PyTorch
+version.
 Phases, each printed on its own line with its result and elapsed seconds:
 
   env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, PIL, the card
@@ -74,7 +76,11 @@ Phases, each printed on its own line with its result and elapsed seconds:
             on the captured inputs and the edge cases as in kernels; the
             splat per (face, channel) row
             with its share of zero cotangents, and the strides of the sky
-            texture's gradient against the texture's own; segment_sum_rows,
+            texture's gradient against the texture's own; the splat
+            launched SPLAT_REPEATS times on the captured input (R=1024) and
+            on one like the SMPL quality protocol's (R=64, 1,536 sky
+            pixels), every launch bit-equal to the first and to the plain
+            version's index_add_ on the CPU; segment_sum_rows,
             which the main path does not call, on the main path's
             segment_sum rows; the segment lengths there; the segment sums
             on edge cases (one Gaussian owning 100,000 entries, a Gaussian
@@ -83,16 +89,21 @@ Phases, each printed on its own line with its result and elapsed seconds:
             launched twice and bit-equal
   train_times    CUDA-event times of each training kernel, its plain
             version, one library call that computes the same function, and
-            its bound, and of the compositing forward with residuals; the
-            device time alone of each kernel and library call, from the
-            profiler
+            its bound, and of the compositing forward with residuals (the
+            splat also at the R=64 input); the device time alone of each
+            kernel and library call, from the profiler
   cli       the port's CLI in subprocesses with PIL blocked:
             tools.train on tests/fixtures/proto_scene (its pixel pack) at
             the flagship widths for CLI_STEPS steps (two refines, a
             resolution-schedule crossing, checkpoints), a resume from the
             step-150 checkpoint, and tools.eval; steps/s, peak memory,
             guards, refinements and kernel launches of the train run, the
-            metrics finite
+            metrics finite, the step-0 snapshot (logging.vis_freq) a PNG
+  render_cli  tools.render on the cli run with PIL blocked: the test and
+            full splits (rgb, depth) and a 60-frame front_center_interp
+            trajectory as PNG frames; ms per novel frame, one expansion,
+            compositing forward and scan per frame, every frame finite and
+            every PNG's IDAT the image's bytes
   bilateral_scene   omnire_bilateral (configs.OMNIRE_BILATERAL_TREE) on the
             same scene plus 8 SMPL walkers of 6,890 vertices each (55,120
             Gaussians, each walker in view of one camera, its own random
@@ -121,6 +132,13 @@ Phases, each printed on its own line with its result and elapsed seconds:
             step timed 3 times from a copy of the state, its launches
             (one of each training kernel) and finite parameters, a test
             view with neighbour-averaged appearance
+  background_variants   pvg and deformablegs on the same scene at full
+            width (2,097,152 background slots, 1,000,000 live, EnvLight
+            R=1024, affine codes, camera refinement; DeformableGS's 8 x 256
+            network over every slot): one step's gradients against the
+            all-plain step (every leaf, PVG's taus, life spans and
+            velocities and the network's among them, none zero), the step
+            timed 3 times, its launches, a test view, the peak memory
   cli_smpl  tools.train --config omnire_bilateral on proto_scene with
             smpl.model_path=synthetic for CLI_SMPL_STEPS steps (its
             pedestrian in SMPLNodes), then tools.eval: test PSNR and the
@@ -130,12 +148,13 @@ Phases, each printed on its own line with its result and elapsed seconds:
             non-finite parameters
   cli_presets  the CLI with each other preset this port added
             (omnire_extended_cam, the neural, multi-scale neural and CP-4D
-            grids, omnire_ms_bilateral_extended): 20 steps of the fixture,
-            a resume from step 11, tools.eval, the five side by side
+            grids, omnire_ms_bilateral_extended, pvg, deformablegs): 20
+            steps of the fixture, a resume from step 11, tools.eval, the
+            seven side by side
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral and omnire paths), the card's name and power limit as
+omnire_bilateral, omnire, background_variants and render_cli paths), the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
 a run without CUDA or outside a checkout of the repository.
@@ -241,12 +260,12 @@ CLI_OMNIRE_OVERRIDES = [o for o in CLI_SMPL_OVERRIDES
     "logging.ckpt_every=50"]
 # the other presets through the CLI on the fixture: each trains
 # CLI_PRESET_STEPS steps, resumes from its step-CLI_PRESET_RESUME
-# checkpoint and is evaluated, the five runs side by side (no steps/s from
+# checkpoint and is evaluated, the seven runs side by side (no steps/s from
 # them), with 262,144 background slots (checkpoints of a fifth the size;
 # cli and cli_omnire run the flagship widths)
 CLI_PRESETS = ("omnire_extended_cam", "omnire_neuralbilateral",
                "omnire_ms_neuralbilateral", "omnire_cp4d",
-               "omnire_ms_bilateral_extended")
+               "omnire_ms_bilateral_extended", "pvg", "deformablegs")
 CLI_PRESET_STEPS, CLI_PRESET_RESUME = 20, 11
 CLI_PRESET_OVERRIDES = [
     o for o in CLI_SMPL_OVERRIDES if not o.startswith(
@@ -255,6 +274,20 @@ CLI_PRESET_OVERRIDES = [
     "logging.log_every=10", "density.warmup_steps=5",
     "density.refine_interval=10", "res_schedule.double_steps=10",
     "res_schedule.downscale_times=1", "background_init.capacity=262144"]
+# the splat relaunched on one input, every launch bit-equal to the first:
+# the train phase's captured input (R=1024) and one shaped like the SMPL
+# quality protocol's first step (EnvLight R=64, 1,536 sky pixels with a
+# cotangent, the top 16 rows of a 96 x 64 view)
+SPLAT_REPEATS = 20
+SPLAT_Q_RES, SPLAT_Q_W, SPLAT_Q_H, SPLAT_Q_SKY_ROWS = 64, 96, 64, 16
+# tools.render on the cli phase's run: the test and full splits and a
+# novel trajectory of RENDER_FRAMES frames
+RENDER_TRAJ, RENDER_FRAMES = "front_center_interp", 60
+# the PVG and DeformableGS backgrounds (their presets) on the omnire scene
+# at full width: one step's gradients against the all-plain step, the step
+# timed BACKGROUND_TIMED_STEPS times, a test view
+BACKGROUNDS = (("pvg", "pvg"), ("deformgs", "deformablegs"))
+BACKGROUND_TIMED_STEPS = 3
 # runs a module as __main__ with PIL made unimportable
 NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
           "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
@@ -916,6 +949,68 @@ def segsum_edge_cases(offs_main, cap_main: int, dev, seed: int) -> dict:
     return out
 
 
+def quality_splat_input(dev, seed: int):
+    """Splat arguments like the SMPL quality protocol's first step: the
+    view directions of a SPLAT_Q_W x SPLAT_Q_H view (yawed and pitched
+    from the seed) at EnvLight R=SPLAT_Q_RES, a cotangent on the top
+    SPLAT_Q_SKY_ROWS rows (the sky) and 0 elsewhere."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import cubemap
+
+    g = torch.Generator().manual_seed(seed + 5)
+    w, h, f = SPLAT_Q_W, SPLAT_Q_H, 0.9 * SPLAT_Q_W
+    xs = (torch.arange(w) + 0.5 - w / 2) / f
+    ys = (torch.arange(h) + 0.5 - h / 2) / f
+    d = torch.stack(torch.broadcast_tensors(
+        xs[None, :], ys[:, None], torch.ones(1, 1)), dim=-1)
+    yaw, pitch = (float(a) for a in torch.rand(2, generator=g) - 0.5)
+    cy, sy, cp, sp = math.cos(yaw), math.sin(yaw), math.cos(pitch), \
+        math.sin(pitch)
+    rot = torch.tensor([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]]) \
+        @ torch.tensor([[1.0, 0.0, 0.0], [0.0, cp, -sp], [0.0, sp, cp]])
+    face, u0, v0, fu, fv = cubemap.corner_data((d @ rot.T).to(dev),
+                                               SPLAT_Q_RES)
+    gout = torch.zeros((h, w, 3))
+    gout[:SPLAT_Q_SKY_ROWS] = 1e-3 * torch.randn(
+        (SPLAT_Q_SKY_ROWS, w, 3), generator=g)
+    return (face, u0, v0, fu, fv, gout.reshape(-1, 3).to(dev), SPLAT_Q_RES)
+
+
+def splat_repeats(name: str, pa) -> dict:
+    """The splat launched SPLAT_REPEATS times on one input: every launch
+    bit-equal to the first, within SUM_RTOL of its plain version per (face,
+    channel) row, and equal bit for bit to the plain version's index_add_
+    on the CPU (the order the kernel sums in); with the longest run of
+    entries one texel sums."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import cubemap_cuda
+
+    first = cubemap_cuda.splat_grad(*pa)
+    differ = [int((cubemap_cuda.splat_grad(*pa) != first).sum())
+              for _ in range(SPLAT_REPEATS - 1)]
+    check(not any(differ), f"splat differs between launches on {name}: "
+          f"{differ} elements")
+    splat_rows = lambda z: z.permute(0, 3, 1, 2).reshape(18, -1)
+    rel = max(row_rel_norms(splat_rows(first),
+                            splat_rows(cubemap_cuda.splat_grad_plain(*pa))))
+    check(rel <= SUM_RTOL, f"splat differs from its plain version on {name} "
+          f"(row relative norm {rel})")
+    cpu = [x.cpu() if torch.is_tensor(x) else x for x in pa]
+    equal_cpu = torch.equal(first.cpu(), cubemap_cuda.splat_grad_plain(*cpu))
+    check(equal_cpu, f"splat differs from index_add_ on the CPU: {name}")
+    res = pa[-1]
+    keys = cubemap_cuda.splat_keys_plain(pa[0], pa[1], pa[2], pa[5], res)
+    live = keys[keys < 6 * res * res]
+    runs = torch.unique(live, return_counts=True)[1]
+    return {"launches": SPLAT_REPEATS, "differing_elements": differ,
+            "row_rel_norm": rel, "equal_to_cpu_index_add": equal_cpu,
+            "pixels": int(pa[0].shape[0]), "texture": res,
+            "entries": int(live.numel()), "texels": int(runs.numel()),
+            "longest_run": int(runs.max()) if runs.numel() else 0}
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by the name of its `kernels` entry;
     each counts its launches in `.launches`."""
@@ -1174,7 +1269,7 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
     return captured, launches, steps, batches
 
 
-def plain_step_grads(cfg, statics, tstate, batch):
+def plain_step_grads(cfg, statics, tstate, batch, time_offset=None):
     """trainer.compute_grads with every kernel reference of the pipeline
     pointed at its plain version."""
     from bilateral_driving_tpu_torch.ops import (binning, cubemap,
@@ -1199,7 +1294,8 @@ def plain_step_grads(cfg, statics, tstate, batch):
             (cubemap, "cubemap_cuda", types.SimpleNamespace(
                 splat_grad=cubemap_cuda.splat_grad_plain)),
             (binning, "scan_utils", plain_scans())):
-        return trainer.compute_grads(cfg, statics, tstate, batch)
+        return trainer.compute_grads(cfg, statics, tstate, batch,
+                                     time_offset=time_offset)
 
 
 def training(args, cfg, scene, state, statics, dev):
@@ -1293,6 +1389,9 @@ def training(args, cfg, scene, state, statics, dev):
           f"version (row relative norms {splat_rel})")
     kept = pa[0] >= 0
     splat_zero_share = float((pa[5][kept] == 0).all(1).float().mean())
+    qa = quality_splat_input(dev, args.seed)
+    splat_repeat = {"r1024_train_input": splat_repeats("the train input", pa),
+                    "r64_quality_input": splat_repeats("the R=64 input", qa)}
     g3 = lambda xs: [float(f"{x:.3g}") for x in xs]
     phase("train_kernels", t0, rasterize_bwd_row_rel_norm=bwd_rel,
           rasterize_bwd_max_abs_err=bwd_err,
@@ -1311,6 +1410,7 @@ def training(args, cfg, scene, state, statics, dev):
           splat_grad_row_norms=g3(splat_rows(z_p).norm(dim=1).tolist()),
           splat_grad_max_abs_err=splat_err,
           splat_zero_cotangent_share=splat_zero_share,
+          splat_repeats=splat_repeat,
           segment_lengths=segment_lengths,
           segment_edge_cases_row_rel_norm=seg_edges,
           segment_sums_bit_equal_across_launches=True,
@@ -1343,24 +1443,6 @@ def training(args, cfg, scene, state, statics, dev):
     seg_rows_bytes = seg_bytes + (segsum_cuda.OUT_ROWS - len(rows)) * n_g * 4
     ids = segsum_cuda.segment_ids(offs, d_rows.shape[1])[:entries]
 
-    face, u0, v0, fu, fv, g, res = pa
-    keep = face >= 0
-    cell = ((face[keep].long() * res + v0[keep].long()) * res
-            + u0[keep].long())
-    cells4 = torch.cat([cell, cell + 1, cell + res, cell + res + 1])
-    wu, wv = fu[keep][:, None], fv[keep][:, None]
-    gk = g[keep]
-    vals4 = torch.cat([gk * (1 - wv) * (1 - wu), gk * (1 - wv) * wu,
-                       gk * wv * (1 - wu), gk * wv * wu])
-    touched = int(torch.unique(cells4).numel())
-    npix = int(keep.sum())
-    # the function returns the dense (6, R, R, 3) gradient: every texel is
-    # written, touched or not. Counting only the touched texels (printed
-    # beside it) undercounts that write
-    splat_bytes = npix * 32 + 6 * res * res * 3 * 4
-    splat_bytes_touched_only = npix * 32 + touched * 3 * 4
-    splat_ops = npix * 4 * 3 * 3
-
     out = []
     for name, source, replaces, fn, plain, lib, nbytes, nops, err in [
             ("rasterize_bwd", "bilateral_driving_tpu_torch/csrc/rasterize_bwd.cu",
@@ -1383,17 +1465,14 @@ def training(args, cfg, scene, state, statics, dev):
              lambda: torch.zeros((segsum_cuda.OUT_ROWS, n_g), device=dev)
              .narrow(0, r0, len(rows))
              .index_add_(1, ids, d_rows[:, :entries]),
-             seg_rows_bytes, entries * 10, rows_err),
-            ("splat_grad", "bilateral_driving_tpu_torch/csrc/cubemap_splat.cu",
-             "bilateral_driving_tpu/ops/cubemap.py:228",
-             lambda: cubemap_cuda.splat_grad(*pa),
-             lambda: cubemap_cuda.splat_grad_plain(*pa),
-             lambda: torch.zeros((6 * res * res, 3), device=dev)
-             .index_add_(0, cells4, vals4),
-             splat_bytes, splat_ops, splat_err)]:
+             seg_rows_bytes, entries * 10, rows_err)]:
         out.append(timed(name, source, replaces, launches[name], err, fn,
                          plain, lib, nbytes, nops))
         out[-1]["launches_per_step"] = launches[name] / len(steps)
+    out.append(splat_times(pa, dev, launches["splat_grad"]))
+    out[-1]["launches_per_step"] = launches["splat_grad"] / len(steps)
+    # the splat again at the quality protocol's R=64 (its longest runs)
+    out[-1]["r64_quality_input"] = splat_times(qa, dev, 0)
     # the forward with its residuals at the training inputs: the render
     # path's bound, plus the checkpoints and n_live written
     fwd_work = compositing_work(fa[0], fa[1], fa[2], train_fwd_plain.n_live,
@@ -1416,12 +1495,52 @@ def training(args, cfg, scene, state, statics, dev):
           blend_pairs=blend_pairs, bwd_work=bwd_work, bwd_bytes=bwd_bytes,
           segment_entries=entries, segment_bytes=seg_bytes,
           segment_rows_bytes=seg_rows_bytes,
-          splat_pixels=npix, splat_texels=touched, splat_bytes=splat_bytes,
-          splat_bytes_if_only_touched_texels_written=splat_bytes_touched_only,
+          splat_pixels=out[3]["pixels"], splat_texels=out[3]["texels"],
+          splat_bytes=out[3]["bytes"],
+          splat_bytes_if_only_touched_texels_written=out[3][
+              "bytes_if_only_touched_texels_written"],
           fwd_work=fwd_work, fwd_bytes=fwd_bytes,
           nvidia_smi=nvidia_smi())
 
     return out, launches["scan"] / len(steps), fwd_train
+
+
+def splat_times(pa, dev, launches: int) -> dict:
+    """timed() of the splat on one input, with its bound (32 bytes per
+    kept pixel and the dense write) and zeros().index_add_."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import cubemap_cuda
+
+    face, u0, v0, fu, fv, g, res = pa
+    keep = face >= 0
+    cell = ((face[keep].long() * res + v0[keep].long()) * res
+            + u0[keep].long())
+    cells4 = torch.cat([cell, cell + 1, cell + res, cell + res + 1])
+    wu, wv = fu[keep][:, None], fv[keep][:, None]
+    gk = g[keep]
+    vals4 = torch.cat([gk * (1 - wv) * (1 - wu), gk * (1 - wv) * wu,
+                       gk * wv * (1 - wu), gk * wv * wu])
+    npix = int(keep.sum())
+    touched = int(torch.unique(cells4).numel())
+    # the function returns the dense (6, R, R, 3) gradient: every texel is
+    # written, touched or not. Counting only the touched texels (printed
+    # beside it) undercounts that write
+    nbytes = npix * 32 + 6 * res * res * 3 * 4
+    err = float((cubemap_cuda.splat_grad(*pa)
+                 - cubemap_cuda.splat_grad_plain(*pa)).abs().max())
+    out = timed("splat_grad",
+                "bilateral_driving_tpu_torch/csrc/cubemap_splat.cu",
+                "bilateral_driving_tpu/ops/cubemap.py:228", launches, err,
+                lambda: cubemap_cuda.splat_grad(*pa),
+                lambda: cubemap_cuda.splat_grad_plain(*pa),
+                lambda: torch.zeros((6 * res * res, 3), device=dev)
+                .index_add_(0, cells4, vals4),
+                nbytes, npix * 4 * 3 * 3)
+    out.update(pixels=npix, texture=res, texels=touched, bytes=nbytes,
+               bytes_if_only_touched_texels_written=npix * 32
+               + touched * 3 * 4)
+    return out
 
 
 def path_kernels(name: str, captured, dev) -> dict:
@@ -1737,6 +1856,226 @@ def appearance_variants(args, dev, scene_rng, batches):
           nvidia_smi=nvidia_smi())
 
 
+def background_variants(args, dev, scene_rng, batches):
+    """The background_variants phase: on the omnire scene, for each of
+    BACKGROUNDS (PVG, DeformableGS) its preset's state at full width (the
+    flagship's 2,097,152 background slots with 1,000,000 live, EnvLight
+    R=1024, the affine codes over 240 images, camera refinement; PVG's
+    taus, life spans and velocities and the DeformableGS network moved off
+    their init): one training step through the kernels with every
+    gradient leaf against the all-plain step at one temporal-smoothing
+    offset, the step's median over BACKGROUND_TIMED_STEPS runs from a copy
+    of the state, its launches (one of each training kernel), every
+    parameter finite after it, a test view, and the peak device memory
+    from the state's build to the test view. Returns each kernel's
+    launches per background."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.eval import render_loop
+    from bilateral_driving_tpu_torch.tools import common
+    from bilateral_driving_tpu_torch.train import trainer
+    from bilateral_driving_tpu_torch.utils.config import wrap
+
+    t0 = time.perf_counter()
+    scene = scene_rng[0]
+    data = synthetic.SyntheticData(scene)
+    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
+    batch = batches[0]
+    wrappers = kernel_wrappers()
+    out, launched = {}, {}
+    for name, preset in BACKGROUNDS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        g = torch.Generator().manual_seed(args.seed)
+        g.set_state(scene_rng[1])
+        cfg = common.trainer_config_from(wrap(configs.PRESETS[preset]),
+                                         data.num_images, NUM_FRAMES, 1.0)
+        check(cfg.background_model == name and not cfg.use_rigid
+              and not cfg.use_deformable and cfg.use_camera_opt,
+              f"{preset}: {cfg.background_model}")
+        state, statics = synthetic.random_state(
+            scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
+            device=dev)
+        views = [(batch, False), (data.get_batch(BILATERAL_VIEWS[1]), True)]
+        cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
+            statics, state.aux), views, WIDTH, HEIGHT, scene.K)
+        cfg = dataclasses.replace(cfg, isect_capacity=cap)
+        tstate = trainer.init_state(
+            cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
+            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        # both steps at one smoothing offset (PVG draws it per step)
+        offset = trainer.temporal_offset(cfg, tstate.generator)
+        for f in wrappers.values():
+            f.launches = 0
+        _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate,
+                                                   batch, time_offset=offset)
+        grad_launches = counts(wrappers)
+        _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch,
+                                              time_offset=offset)
+        torch.cuda.synchronize()
+        check(counts(wrappers) == grad_launches,
+              f"{name}: a kernel launched in the plain-version step")
+        check(all(grad_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
+              and grad_launches["scan"] >= 1,
+              f"{name}: the gradient step's launches {grad_launches}")
+        g_k["means2d"], g_p["means2d"] = gd_k, gd_p
+        rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
+        worst = max(rels, key=rels.get)
+        zero = sorted(k for k in g_p if not bool(g_p[k].any()))
+        check(rels[worst] <= GRADS_RTOL,
+              f"{name}: gradient of {worst} differs from the plain step by "
+              f"{rels[worst]}")
+        check(not zero, f"{name}: leaves without gradient: {zero}")
+        background_rel = {k: float(f"{v:.3g}") for k, v in rels.items()
+                          if k.startswith("Background/")
+                          and "trunk" not in k}
+        del g_k, g_p, gd_k, gd_p
+
+        saved = snapshot(tstate)
+        for f in wrappers.values():
+            f.launches = 0
+        ms = []
+        for i in range(BACKGROUND_TIMED_STEPS):
+            st = restore(saved, tstate.generator) if i else tstate
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = trainer.train_step(cfg, statics, st, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            if i == 0:
+                step_launches = counts(wrappers)
+                vals = {k: float(v) for k, v in m.items()}
+                tstate = st
+            del st
+        check(all(step_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
+              and step_launches["scan"] >= 1
+              and step_launches["segment_sum_rows"] == 0,
+              f"{name}: the step's launches {step_launches}")
+        check(all(math.isfinite(v) for v in vals.values())
+              and vals["nonfinite_params"] == 0
+              and vals["isect_overflow"] == 0,
+              f"{name}: step metrics {vals}")
+        check(all(bool(torch.isfinite(p).all())
+                  for _, p in trainer.named_leaves(tstate.params)),
+              f"{name}: a parameter is not finite")
+        del saved
+
+        for f in wrappers.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = render_loop.render_images(cfg, tstate, statics, data,
+                                        [BILATERAL_VIEWS[1]], neighbor_map)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t1)
+        frame_launches = counts(wrappers)
+        rgb = res["rgbs"][0]
+        check(all(frame_launches[k] == 1 for k in ("expand",
+                                                   "rasterize_fwd"))
+              and frame_launches["scan"] >= 1
+              and bool(torch.isfinite(rgb).all())
+              and not bool(res["overflow"][0]),
+              f"{name}: test frame {frame_launches}")
+        launched[name] = step_launches
+        out[name] = {
+            "preset": preset, "isect_capacity": cap,
+            "bg_slots": int(state.masks["Background"].shape[0]),
+            "bg_live": int(state.masks["Background"].sum()),
+            "envlight_resolution": cfg.envlight_resolution,
+            "time_offset": float(offset),
+            "grads_worst_leaf": worst, "grads_worst_rel_norm": rels[worst],
+            "background_rel_norm": background_rel, "zero_leaves": zero,
+            "loss": round(vals["loss"], 5),
+            "losses": {k[5:]: round(v, 6) for k, v in vals.items()
+                       if k.startswith("loss/")},
+            "step_ms": [round(x, 3) for x in ms],
+            "step_median_ms": round(sorted(ms)[len(ms) // 2], 3),
+            "step_launches": step_launches,
+            "test_frame_ms": round(frame_ms, 3),
+            "test_frame_launches": frame_launches,
+            "test_frame_rgb_mean": round(float(rgb.mean()), 4),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+        del tstate, state, statics, res
+    phase("background_variants", t0, backgrounds=out, tolerance=GRADS_RTOL,
+          nvidia_smi=nvidia_smi())
+    return launched
+
+
+def png_rows(path: str):
+    """(height, width, channels) of an 8-bit PNG and the bytes its IDAT
+    chunks decompress to, read with zlib and struct (no PIL)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    check(blob[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(blob):
+        n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+        data = blob[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h, depth, colour = ihdr[:4]
+    check(depth == 8, f"{path}: bit depth {depth}")
+    return h, w, {0: 1, 2: 3, 6: 4}[colour], len(zlib.decompress(idat))
+
+
+def render_cli(dev, run_dir: str) -> dict:
+    """The render_cli phase: tools.render on the cli phase's run with PIL
+    blocked: the test and full splits (rgb and depth) and a
+    RENDER_FRAMES-frame RENDER_TRAJ trajectory; ms per novel frame
+    (synchronized host clock, median), one expansion, compositing forward
+    and scan launched per novel frame, every frame finite, and every PNG's
+    IDAT decompressing to H x W x 3 bytes plus a filter byte per row.
+    Returns the launches of the novel frames."""
+    t0 = time.perf_counter()
+    render_s = run_cli("render", "--log_dir", run_dir, "--traj", RENDER_TRAJ,
+                       "--frames", str(RENDER_FRAMES))
+    videos = os.path.join(run_dir, "videos")
+    with open(os.path.join(videos, "render_summary.json")) as f:
+        summ = json.load(f)
+    check(summ["novel_frames"] == RENDER_FRAMES and summ["novel_finite"]
+          and summ["splits"].get("test", 0) > 0
+          and summ["splits"].get("full", 0) > 0,
+          f"render summary {summ['splits']}, {summ['novel_frames']} frames")
+    per_frame = summ["novel_launches"]
+    check(all(fl["expand"] == 1 and fl["rasterize_fwd"] == 1
+              and fl["scan"] == 1 and fl["rasterize_bwd"] == 0
+              for fl in per_frame),
+          f"novel frame launches {per_frame[:3]}")
+    h, w = summ["size"]
+    pngs = 0
+    for name, n in [("test", summ["splits"]["test"]),
+                    ("test_depth", summ["splits"]["test"]),
+                    ("full", summ["splits"]["full"]),
+                    ("full_depth", summ["splits"]["full"]),
+                    (f"novel_{RENDER_TRAJ}", RENDER_FRAMES)]:
+        files = sorted(os.listdir(os.path.join(videos, name)))
+        check(files == [f"{i:04d}.png" for i in range(n)],
+              f"{name}: {len(files)} frames")
+        for fname in files:
+            check(png_rows(os.path.join(videos, name, fname))
+                  == (h, w, 3, h * (w * 3 + 1)), f"{name}/{fname}")
+            pngs += 1
+    launches = {k: sum(fl[k] for fl in per_frame) for k in per_frame[0]}
+    ms = summ["novel_ms"]
+    phase("render_cli", t0, traj=RENDER_TRAJ, frames=RENDER_FRAMES,
+          splits=summ["splits"], size=summ["size"], pngs_checked=pngs,
+          ms_per_frame_median=summ["novel_ms_median"],
+          ms_per_frame=[round(x, 3) for x in ms],
+          spread_ms=round(max(ms) - min(ms), 3),
+          launches_per_frame=per_frame[0], launches=launches,
+          render_s=round(render_s, 2), device=str(dev),
+          nvidia_smi=nvidia_smi())
+    return launches
+
+
 def cli_smpl(dev):
     """The cli_smpl phase: tools.train --config omnire_bilateral on
     proto_scene with the synthetic body (its pedestrian in SMPLNodes),
@@ -1949,6 +2288,8 @@ def cli(dev):
           f"guards: {summ}")
     check(len(summ["refines"]) >= 2, f"refines: {summ['refines']}")
     check(len(summ["downscales"]) >= 2, "no resolution-schedule crossing")
+    # the preset's logging.vis_freq snapshot of step 0, written without PIL
+    snap = png_rows(os.path.join(run_dir, "images", "step_0.png"))
 
     ckpt = os.path.join(run_dir, "checkpoints",
                         f"checkpoint_{CLI_RESUME_STEP}.pt")
@@ -1987,9 +2328,11 @@ def cli(dev):
           metrics_test=metrics["test"],
           metrics_full={k: metrics["full"][k] for k in ("psnr", "ssim")},
           train_s=round(train_s, 2), resume_s=round(resume_s, 2),
-          eval_s=round(eval_s, 2), device=str(dev),
-          nvidia_smi=nvidia_smi())
+          eval_s=round(eval_s, 2), snapshot_step_0=snap[:3],
+          device=str(dev), nvidia_smi=nvidia_smi())
+    render_launches = render_cli(dev, run_dir)
     shutil.rmtree(out)
+    return render_launches
 
 
 def main() -> int:
@@ -2368,9 +2711,17 @@ def main() -> int:
             "render": render_l[k["name"]], "frames": n_frames,
             "train": train_l[k["name"]], "steps": n_steps}
     appearance_variants(args, dev, scene_rng, batches)
+    bg_launches = background_variants(args, dev, scene_rng, batches)
+    for k in kernels:
+        k["launches_background_variants"] = {
+            name: {"train": launched[k["name"]], "steps": 1}
+            for name, launched in bg_launches.items()}
     del scene_rng, batches
 
-    cli(dev)
+    render_l = cli(dev)
+    for k in kernels:
+        k["launches_render_cli"] = {"novel": render_l[k["name"]],
+                                    "frames": RENDER_FRAMES}
     cli_smpl(dev)
     cli_omnire(dev)
     cli_presets(dev)
