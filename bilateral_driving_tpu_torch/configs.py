@@ -232,6 +232,25 @@ DEFORMABLEGS_TREE = _variant(
         "losses.lidar_w_decay", "losses.opacity_entropy",
         "losses.inverse_depth_smoothness"))
 
+# synthetic.yaml: the generated scene of tools/common.build_synthetic_scene
+# (a vanilla background, one rigid car, no pedestrians), SH 1 and a 32 x 32
+# EnvLight over a 200-step run; not a variant of the flagship tree
+SYNTHETIC_TREE = {
+    "trainer": {"background_model": "vanilla", "use_rigid": True,
+                "use_smpl": False, "sky_model": "envlight",
+                "affine_model": "multiscale_bilateral", "sh_degree": 1,
+                "envlight_resolution": 32, "max_steps": 200},
+    "render": {"isect_capacity": 65536},
+    "losses": {"rgb": 0.8, "ssim": 0.2, "mask": 0.05, "depth": 0.0},
+    "density": {"refine_interval": 50, "warmup_steps": 10,
+                "reset_alpha_interval": 100000},
+    "data": {"synthetic": True, "width": 128, "height": 96,
+             "num_frames": 6, "num_bg": 3000, "bg_capacity": 8192,
+             "num_cams": 1},
+    "sampler": {"buffer_ratio": 0.3},
+    "logging": {"log_every": 20, "ckpt_every": 100},
+}
+
 PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
            "omnire_bilateral": OMNIRE_BILATERAL_TREE,
            "omnire": OMNIRE_TREE,
@@ -242,7 +261,8 @@ PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
            "omnire_ms_bilateral_extended":
                OMNIRE_MS_BILATERAL_EXTENDED_TREE,
            "pvg": PVG_TREE,
-           "deformablegs": DEFORMABLEGS_TREE}
+           "deformablegs": DEFORMABLEGS_TREE,
+           "synthetic": SYNTHETIC_TREE}
 
 # background_init.capacity and trainer.max_steps of the same tree
 FLAGSHIP_BG_CAPACITY = FLAGSHIP_TREE["background_init"]["capacity"]

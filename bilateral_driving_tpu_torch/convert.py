@@ -20,13 +20,17 @@ log betas and velocities, and a DeformableGS Background's network (its
 `deform_net`, a DeformNetwork without instance codes) with the
 contraction box in its statics. An MLP's static `skips`
 leaf is dropped: the port passes skips to encoders.mlp_apply, and every
-MLP carried here has none.
+MLP carried here has none. `synthetic_scene_from_jax` carries the JAX
+package's generated scene (data/synthetic.SyntheticScene: one camera, one
+rigid instance) into the port's SyntheticScene, so that
+tools/common.build_synthetic_scene builds from the same points.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .data import synthetic
 from .models.deform import DeformNetwork
 from .scene import smpl_model
 from .train import density, trainer
@@ -123,3 +127,18 @@ def train_state_from_jax(cfg, params, aux, masks, stats, step: int,
         torch.from_numpy(np.array(x)).to(device) for x in s))
         for name, s in stats.items()}
     return state
+
+
+def synthetic_scene_from_jax(scene, device="cuda") -> synthetic.SyntheticScene:
+    """The JAX package's SyntheticScene (arrays as numpy) as the port's:
+    its rigid instance under inst["RigidNodes"], its per-frame cameras one
+    image each."""
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)
+    car = {"means": t(scene.rigid_means), "colors": t(scene.rigid_colors),
+           "point_ids": t(scene.rigid_point_ids),
+           "quats": t(scene.rigid_quats), "trans": t(scene.rigid_trans),
+           "frame_valid": t(scene.rigid_fv), "sizes": t(scene.rigid_sizes)}
+    return synthetic.SyntheticScene(
+        t(scene.bg_means), t(scene.bg_colors), {"RigidNodes": car},
+        t(scene.cameras), t(scene.K), int(scene.width), int(scene.height),
+        int(scene.num_frames), 1)

@@ -25,6 +25,11 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """The colour of a DC coefficient (inverse of rgb_to_sh)."""
+    return sh * C0 + 0.5
+
+
 def eval_sh_bases(degree: int, dirs: torch.Tensor) -> torch.Tensor:
     """(..., 3) unit directions -> (..., (degree+1)^2) basis values."""
     if not 0 <= degree <= 3:

@@ -18,7 +18,8 @@ the JAX package's; `SceneData.get_batch` hands one image to the trainer as
 tensors on the scene's device. Images and masks are decoded by PIL, or read
 from a pixel pack (tools/pack_scene.py: the same decoded arrays in one
 .npz, keyed by their path under the scene directory), so a machine without
-PIL loads a packed scene; resizing at load needs PIL. Tracked SMPL poses
+PIL loads a packed scene; resizing at load (`data.downscale`) is the port's
+own, equal to PIL's (`resize`). Tracked SMPL poses
 come from `humanpose/smpl.pkl` (`load_smpl_poses`).
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import pickle
 from typing import Dict, List, Optional
@@ -312,17 +314,85 @@ class PixelSource:
                           .convert(mode))
 
 
+_PRECISION_BITS = 32 - 8 - 2     # PIL's fixed-point bits (Resample.c)
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """PIL's precompute_coeffs for its triangle filter (support 1, widened
+    by the scale when shrinking) and normalize_coeffs_8bpc: per output
+    pixel the first input index and fixed-point weights (out, ksize)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    xmins = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = np.maximum(1.0 - np.abs(
+            (np.arange(xmax) + xmin - center + 0.5) / filterscale), 0.0)
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        # C's (int) truncates toward zero after the half is added
+        kk[xx, :xmax] = np.trunc(
+            np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS))
+        xmins[xx] = xmin
+    return xmins, kk
+
+
+def _bilinear_pass(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One separable pass of PIL's 8-bit resampling along `axis`: fixed-
+    point sums rounded by half a unit, clipped to [0, 255]."""
+    xmins, kk = _bilinear_coeffs(a.shape[axis], out_size)
+    src = np.moveaxis(a, axis, 0).astype(np.int64)
+    idx = np.minimum(xmins[:, None] + np.arange(kk.shape[1])[None],
+                     a.shape[axis] - 1)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    for j in range(kk.shape[1]):
+        w = kk[:, j].reshape((out_size,) + (1,) * (src.ndim - 1))
+        acc += src[idx[:, j]] * w
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's nearest-neighbour scaling (ImagingScaleAffine): the source
+    coordinate starts at half a step and adds the step per pixel, in
+    double, truncated."""
+    step = in_size / out_size
+    out = np.empty(out_size, np.int64)
+    v = step * 0.5
+    for i in range(out_size):
+        out[i] = min(int(v), in_size - 1)
+        v += step
+    return out
+
+
 def resize(a: np.ndarray, size, nearest: bool) -> np.ndarray:
-    """PIL resize to (W, H), the JAX loader's; the identity when the size
-    already matches (PIL returns a copy then), so a pack at load size needs
-    no PIL."""
+    """Resize a uint8 (H, W) or (H, W, C) image to size (W, H) as PIL's
+    Image.resize does with NEAREST or BILINEAR, without PIL: bilinear is
+    PIL's separable triangle filter (support widened by the scale when
+    shrinking, horizontal pass first, 22-bit fixed-point weights, each pass
+    rounded to uint8), nearest its truncated half-step sampling. The
+    identity (a copy) when the size already matches."""
     w, h = size
     if a.shape[1] == w and a.shape[0] == h:
         return a.copy()
-    from PIL import Image
-
-    return np.asarray(Image.fromarray(a).resize(
-        (w, h), Image.NEAREST if nearest else Image.BILINEAR))
+    if a.dtype != np.uint8:
+        raise TypeError(f"resize takes uint8 images, not {a.dtype}")
+    if nearest:
+        return a[_nearest_index(a.shape[0], h)][:, _nearest_index(
+            a.shape[1], w)]
+    out = a
+    if a.shape[1] != w:
+        out = _bilinear_pass(out, w, axis=1)
+    if a.shape[0] != h:
+        out = _bilinear_pass(out, h, axis=0)
+    return out
 
 
 # --------------------------------------------------------------------------

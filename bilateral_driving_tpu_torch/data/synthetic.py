@@ -1,7 +1,8 @@
 """Synthetic driving scene: port of bilateral_driving_tpu/data/synthetic.py
 (`make_scene`, `make_batch`) on torch.Generator, plus scene parameters drawn
 straight from the seed (`random_state`; initialising from points, with its
-KNN scales, is the CLI's set-up).
+KNN scales, is tools/common.build_synthetic_scene) and `RenderedFrames`,
+the image source of the CLI's synthetic mode.
 
 The scene: a camera rig of `num_cams` cameras (yawed like nuScenes' six)
 driving forward along +z; a background of ground, two facades and clutter;
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import sh as sh_lib
@@ -352,3 +354,31 @@ class SyntheticData:
             for c in range(cams):
                 out[f * cams + c] = [t * cams + c for t in near]
         return out
+
+
+class RenderedFrames:
+    """The frames of a one-camera SyntheticScene with given target images:
+    the image source of the training CLI's synthetic mode (its rendered
+    ground truth) and of eval.render_loop. Every frame trains; there are
+    no sky, object or lidar maps (all zero) and no test split."""
+
+    def __init__(self, scene: SyntheticScene, pixels):
+        self.scene = scene
+        self.num_images = len(pixels)
+        self.batches = [make_batch(scene, i, p) for i, p in enumerate(pixels)]
+        zeros = np.zeros((self.num_images, scene.height, scene.width),
+                         np.float32)
+        self.sky_masks = self.dynamic_masks = zeros
+        self.human_masks = self.vehicle_masks = zeros
+        self.lidar_depth_maps = None
+
+    def get_batch(self, image_idx: int, downscale: int = 1):
+        if downscale != 1:
+            raise ValueError("synthetic frames train at their own size")
+        return self.batches[image_idx]
+
+    def split_train_test(self, test_stride: int):
+        return np.arange(self.num_images), np.zeros(0, np.int64)
+
+    def neighbor_train_indices(self, test_stride: int, k: int = 2):
+        return {}

@@ -8,8 +8,9 @@ from its points. SMPL-class instances become SMPLNodes when
 `trainer.use_smpl` is on and a body model is given (`smpl.model_path`: the
 SMPL pickle, or "synthetic" for the port's own random body); otherwise they
 go to DeformableNodes, as in the JAX package. The Background is vanilla,
-PVG or DeformableGS (`trainer.background_model`). The synthetic-scene
-builder waits for its slice.
+PVG or DeformableGS (`trainer.background_model`).
+`build_synthetic_scene` builds the generated scene of `data.synthetic`
+(configs/synthetic.yaml) through the same builders.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core import transforms
-from ..data import scene as scene_mod
+from ..data import scene as scene_mod, synthetic
 from ..scene import smpl_model
 from ..train import density, setup, trainer
 from ..utils.config import ConfigDict, validate_keys
@@ -336,3 +337,85 @@ def _smpl_from_scene(generator, cfg, data, tcfg, device):
         generator, model, t(betas), t(root_q)[:, :, None, :], t(body),
         t(poses[..., :3, 3]), t(frame_valid), sh_degree=tcfg.sh_degree,
         use_voxel_deformer=tcfg.use_voxel_deformer)
+
+
+def build_synthetic_scene(cfg: ConfigDict, seed: int = 0, device="cuda",
+                          scene: synthetic.SyntheticScene | None = None,
+                          smpl_body: smpl_model.SMPLModel | None = None):
+    """The generated scene of `data.synthetic` (the JAX package's
+    tools/common.build_synthetic_scene): data/synthetic.make_scene's
+    background and rigid car under one camera, `data.bg_capacity`
+    background slots (vanilla, PVG or DeformableGS), RigidNodes of capacity
+    1,024, with trainer.use_smpl one SMPL pedestrian of a synthetic body of
+    64 vertices in the DA pose at (0, 0, 8), and with
+    trainer.use_deformable DeformableNodes on the rigid instances. The
+    scene is drawn from a CPU generator seeded `seed`, which then draws the
+    background and rigid Gaussians; the appearance model, SMPLNodes and
+    DeformableNodes draw from generators seeded seed + 1, + 2 and + 3.
+    `scene` and `smpl_body` replace the drawn scene and body (tests carry
+    the JAX package's over). Returns (tcfg, scene, params, statics, aux,
+    masks)."""
+    d = cfg.get("data", {})
+    num_frames = d.get("num_frames", 6)
+    gen = torch.Generator().manual_seed(seed)
+    if scene is None:
+        scene = synthetic.make_scene(
+            gen, num_bg=d.get("num_bg", 3000), num_frames=num_frames,
+            width=d.get("width", 128), height=d.get("height", 96),
+            device=device)
+    tcfg = trainer_config_from(cfg, scene.num_frames, scene.num_frames, 15.0)
+    params = setup.build_models(tcfg, device,
+                                torch.Generator().manual_seed(seed + 1))
+    masks, aux, statics = {}, {}, {"Background": {}}
+    bg_cap = d.get("bg_capacity", 8192)
+    if tcfg.background_model == "pvg":
+        bg, masks["Background"] = setup.build_pvg_background(
+            gen, bg_cap, scene.bg_means, scene.bg_colors,
+            sh_degree=tcfg.sh_degree,
+            time_scale=tcfg.pvg_time_interval * max(tcfg.num_frames - 1, 1))
+    elif tcfg.background_model == "deformgs":
+        bg, statics["Background"], masks["Background"] = \
+            setup.build_deformgs_background(
+                gen, bg_cap, scene.bg_means, scene.bg_colors,
+                torch.zeros(3, device=device), 20.0,
+                sh_degree=tcfg.sh_degree)
+    elif tcfg.background_model == "vanilla":
+        bg, masks["Background"] = setup.build_background(
+            gen, bg_cap, scene.bg_means, scene.bg_colors,
+            sh_degree=tcfg.sh_degree)
+    else:
+        raise ValueError(
+            f"unknown background_model {tcfg.background_model!r}")
+    params["Background"] = bg
+    aux["Background"] = {}
+    car = scene.inst["RigidNodes"]
+    car_args = (car["means"], car["colors"], car["point_ids"], car["quats"],
+                car["trans"], car["frame_valid"], car["sizes"])
+    if tcfg.use_rigid:
+        (params["RigidNodes"], statics["RigidNodes"], aux["RigidNodes"],
+         masks["RigidNodes"]) = setup.build_rigid(
+            gen, 1024, *car_args, sh_degree=tcfg.sh_degree)
+    if tcfg.use_smpl:
+        smpl_gen = torch.Generator().manual_seed(seed + 2)
+        body = smpl_body if smpl_body is not None else \
+            smpl_model.synthetic_model(smpl_gen, num_verts=64, device=device)
+        F, I = scene.num_frames, 1
+        da = smpl_model.da_pose_quats(device=device)
+        trans = torch.tensor([0.0, 0.0, 8.0], device=device)
+        (params["SMPLNodes"], statics["SMPLNodes"], aux["SMPLNodes"],
+         masks["SMPLNodes"]) = setup.build_smpl(
+            smpl_gen, body, torch.zeros((I, 10), device=device),
+            da[0].expand(F, I, 1, 4).clone(),
+            da[1:].expand(F, I, 23, 4).clone(),
+            trans.expand(F, I, 3).clone(),
+            torch.ones((F, I), dtype=torch.bool, device=device),
+            sh_degree=tcfg.sh_degree,
+            use_voxel_deformer=tcfg.use_voxel_deformer)
+    if tcfg.use_deformable:
+        # the synthetic scene reuses its rigid instances as deformable ones
+        (params["DeformableNodes"], statics["DeformableNodes"],
+         aux["DeformableNodes"], masks["DeformableNodes"]) = \
+            setup.build_deformable(
+                torch.Generator().manual_seed(seed + 3), 1024, *car_args,
+                car["sizes"].shape[0], sh_degree=tcfg.sh_degree)
+    return tcfg, scene, params, statics, aux, masks

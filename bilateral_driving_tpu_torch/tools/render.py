@@ -28,12 +28,11 @@ import time
 import numpy as np
 import torch
 
-from ..data.scene import _pixel_viewdirs
 from ..eval import render_loop
-from ..train import checkpoint, trainer
+from ..train import checkpoint
 from ..utils import config as config_lib, trajectory
 from ..utils.logging import logger, setup_logging
-from . import train as train_cli
+from . import train as train_cli, viewer
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -99,29 +98,21 @@ def main(argv=None):
     per_cam = {ci: data.cam_to_worlds[data.cam_of_image == ci]
                for ci in range(data.num_cams)}
     traj = trajectory.get_novel_trajectory(per_cam, args.traj, args.frames)
-    full_statics = trainer.merge_statics(statics, state.aux)
     base_batch = data.get_batch(0)
-    K = _np(base_batch["intrinsics"])
     h, w = base_batch["pixels"].shape[:2]
+    render = viewer.novel_view_renderer(lambda: (tcfg, state), statics,
+                                        base_batch)
     frames, frame_ms, frame_launches = [], [], []
-    with torch.no_grad():
-        for c2w in traj:
-            b = dict(base_batch)
-            b["camera_to_world"] = torch.from_numpy(c2w).to(dev)
-            b["viewdirs"] = torch.from_numpy(
-                _pixel_viewdirs(h, w, K, c2w)).to(dev)
-            before = train_cli.launch_counts()
-            _sync(dev)
-            t0 = time.perf_counter()
-            o = trainer.forward(tcfg, state.params, full_statics,
-                                state.masks, b, state.step, novel_view=True,
-                                in_test_set=True)
-            rgb = torch.clamp(o["rgb"], 0.0, 1.0)
-            _sync(dev)
-            frame_ms.append(1e3 * (time.perf_counter() - t0))
-            after = train_cli.launch_counts()
-            frame_launches.append({k: after[k] - before[k] for k in after})
-            frames.append(_np(rgb))
+    for c2w in traj:
+        before = train_cli.launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        rgb = render(c2w, base_batch["normed_time"])
+        _sync(dev)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        after = train_cli.launch_counts()
+        frame_launches.append({k: after[k] - before[k] for k in after})
+        frames.append(_np(rgb))
     novel = render_loop.save_video(frames, os.path.join(
         out_dir, f"novel_{args.traj}.mp4"))
     logger.info(f"wrote novel trajectory frames ({len(frames)}) to {novel}")

@@ -8,9 +8,13 @@ device.
 
 Starts from a preset of configs.PRESETS with dotted `key=value` overrides
 (YAML scalars and flow lists), builds the scene from its directory
-(tools/common.build_real_scene) and trains it on `--device` (default cuda;
-no CPU fallback): error-buffer importance sampling with its periodic
-refresh, the coarse-to-fine resolution schedule, `trainer.steps_per_dispatch`
+(tools/common.build_real_scene) or, with `data.synthetic` (the
+`synthetic` preset), the generated scene (build_synthetic_scene of
+tools/common: its ground truth rendered once by the forward, then every
+parameter moved by 0.05 N(0, 1) so training starts away from it), and
+trains it on `--device` (default cuda; no CPU fallback):
+error-buffer importance sampling with its periodic refresh, the
+coarse-to-fine resolution schedule, `trainer.steps_per_dispatch`
 steps per window (a plain loop; host events land on window starts), a
 pending-metrics window flushed every `logging.metrics_flush_every` steps
 with the non-finite loss and non-finite parameter guards and the
@@ -21,15 +25,20 @@ continues from a checkpoint exactly as the uninterrupted run would.
 The run directory `<output_root>/<run_name>` receives config.json,
 metrics.json, log.txt, checkpoints/, test_metrics.json (the first 20 test
 images) and train_summary.json (steps, steps/s, peak device memory,
-kernel launch counts, refinements, guards); every `logging.vis_freq` steps
-(from step 0) an images/step_<step>.png snapshot of one frame's cameras,
-ground truth over render over depth over error (utils/visualization).
-Synthetic mode, the parallel flags, TensorBoard/wandb and the live viewer
-wait for later slices.
+kernel launch counts, refinements, guards, the first and last flushed
+loss and PSNR); every `logging.vis_freq` steps (from step 0) an
+images/step_<step>.png snapshot of one frame's cameras, ground truth over
+render over depth over error (utils/visualization); TensorBoard events in
+tb/ (utils/tb, written by the port itself) and a copy of the port's
+sources in backup/ (utils/backup). In synthetic mode the metrics come
+from every frame, as every frame trains. `--viewer_port PORT` serves the
+live viewer (tools/viewer) while training; `--enable_wandb` logs to wandb
+where it is installed. The parallel flags wait for a later slice.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -39,11 +48,13 @@ import numpy as np
 import torch
 
 from .. import configs
-from ..data import importance
+from ..data import importance, synthetic
 from ..eval import render_loop
 from ..ops import pipeline
 from ..train import checkpoint, trainer
+from ..utils import backup as backup_lib
 from ..utils import config as config_lib
+from ..utils import tb as tb_lib
 from ..utils import visualization
 from ..utils.logging import MetricLogger, logger, setup_logging
 from . import common
@@ -59,6 +70,12 @@ def parse_args(argv=None):
                    help="checkpoint file to continue from")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--viewer_port", type=int, default=0,
+                   help="serve the live viewer on this port while training "
+                        "(0: off)")
+    p.add_argument("--enable_wandb", action="store_true",
+                   help="log to wandb where the package is installed "
+                        "(offline without an API key)")
     p.add_argument("opts", nargs="*", help="dotlist overrides key=value")
     return p.parse_args(argv)
 
@@ -86,7 +103,11 @@ def launch_counts() -> dict:
 
 
 def build(cfg, seed: int, dev):
-    """Scene, trainer config and fresh training state of a config tree."""
+    """Scene, trainer config and fresh training state of a config tree:
+    the scene directory of cfg.data, or with data.synthetic the generated
+    scene as synthetic.RenderedFrames of its perturbed start."""
+    if cfg.get_path("data.synthetic", False):
+        return build_synthetic(cfg, seed, dev)
     tcfg, data, params, statics, aux, masks = common.build_real_scene(
         cfg, seed, dev)
     state = trainer.init_state(
@@ -95,18 +116,41 @@ def build(cfg, seed: int, dev):
     return tcfg, data, statics, state
 
 
+def build_synthetic(cfg, seed: int, dev):
+    """Synthetic mode (the JAX CLI's tools/train.py:106-134): the
+    generated scene's frames rendered once by the forward and clipped to
+    [0, 1] are the targets; then every floating parameter moves by 0.05
+    N(0, 1), drawn from a CPU generator seeded seed + 4, so the run starts
+    away from them."""
+    tcfg, scene, params, statics, aux, masks = \
+        common.build_synthetic_scene(cfg, seed, dev)
+    full = trainer.merge_statics(statics, aux)
+    with torch.no_grad():
+        pixels = [torch.clamp(trainer.forward(
+            tcfg, params, full, masks, synthetic.make_batch(scene, f),
+            0)["rgb"], 0.0, 1.0) for f in range(scene.num_frames)]
+        g = torch.Generator().manual_seed(seed + 4)
+        for _, p in trainer.named_leaves(params):
+            p += 0.05 * torch.randn(p.shape, generator=g,
+                                    dtype=p.dtype).to(p.device)
+    state = trainer.init_state(
+        tcfg, params, masks, aux,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    return tcfg, synthetic.RenderedFrames(scene, pixels), statics, state
+
+
 def main(argv=None):
     args = parse_args(argv)
     dev = device_of(args.device)
     cfg = config_lib.apply_dotlist(config_lib.wrap(configs.PRESETS[args.config]),
                                    args.opts)
-    if cfg.get_path("data.synthetic", False):
-        raise NotImplementedError("synthetic mode is not ported yet: the "
-                                  "synthetic-CLI slice")
+    synthetic_mode = bool(cfg.get_path("data.synthetic", False))
     log_dir = os.path.join(args.output_root, args.run_name)
     os.makedirs(log_dir, exist_ok=True)
     setup_logging(log_dir)
     config_lib.save_config(cfg, os.path.join(log_dir, "config.json"))
+    # per-run source snapshot (utils/backup.py:39-56 of the reference)
+    backup_lib.backup_project(log_dir)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -154,6 +198,9 @@ def main(argv=None):
     rs_double = int(cfg.get_path("res_schedule.double_steps", 0) or 0)
     rs_times = int(cfg.get_path("res_schedule.downscale_times", 0) or 0)
     mlogger = MetricLogger(output_file=os.path.join(log_dir, "metrics.json"))
+    tbw = tb_lib.TBWriter(os.path.join(log_dir, "tb"))
+    wb = tb_lib.WandbWriter(args.enable_wandb, "bilateral_driving_tpu_torch",
+                            args.run_name, config=dict(cfg), log_dir=log_dir)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
 
     def sched_downscale(step: int) -> int:
@@ -166,7 +213,12 @@ def main(argv=None):
     def visualize(step: int) -> None:
         """Every camera of a frame that sweeps the sequence over the run,
         tiled as ground truth, render, depth and error rows
-        (tools/train.py:196-246 of the reference)."""
+        (tools/train.py:196-246 of the reference), and the sampler's
+        error buffer as a (cameras, frames) heat map; TensorBoard and wandb
+        get both images and the frame's metrics. Not in synthetic mode,
+        as in the JAX package."""
+        if synthetic_mode:
+            return
         n_vis = max(max_steps // vis_freq, 1)
         frame = int(np.linspace(0, data.num_frames, n_vis + 1,
                                 endpoint=False, dtype=int)[step // vis_freq])
@@ -174,6 +226,7 @@ def main(argv=None):
         res = render_loop.render_images(tcfg, state, statics, data, idxs,
                                         neighbor_map=neighbor_map,
                                         compute_metrics=True)
+        agg = render_loop.aggregate_metrics(res["metrics"])
         res = {k: [x.cpu().numpy() for x in res[k]]
                for k in ("rgbs", "gt_rgbs", "depths")}
         names = [data.camera_names()[int(data.cam_of_image[i])]
@@ -183,6 +236,21 @@ def main(argv=None):
         os.makedirs(os.path.join(log_dir, "images"), exist_ok=True)
         visualization.save_png(grid, os.path.join(log_dir, "images",
                                                   f"step_{step}.png"))
+        # the reference's buffer-map videos (tools/train.py:320-350)
+        wts = sampler._weights(train_indices)
+        hm = np.zeros(data.num_images, np.float32)
+        hm[np.asarray(train_indices)] = wts / max(wts.max(), 1e-12)
+        ncam = max(int(cfg.get_path("data.num_cams", 1)), 1)
+        rows = -(-data.num_images // ncam)
+        hm = np.pad(hm, (0, rows * ncam - data.num_images)).reshape(
+            rows, ncam).T
+        hm_img = np.repeat(np.repeat(hm, 8, 0), 8, 1)[..., None].repeat(3, -1)
+        image_metrics = {f"image_metrics/{k}": v for k, v in agg.items()}
+        for w in (tbw, wb):
+            w.image("sampler/error_buffer", hm_img, step)
+            w.scalars(image_metrics, step)
+            w.image("image_rendering/gt_rgbs_render_rgbs_depths_error",
+                    grid, step)
 
     def refresh_error_buffer() -> None:
         """Every train image's error at low resolution, so rarely drawn
@@ -198,7 +266,8 @@ def main(argv=None):
 
     # what train_summary.json reports besides the counts and times
     summary = {"refines": [], "rebuckets": [], "overflow_steps": 0,
-               "nonfinite_params_max": 0.0, "downscales": {}}
+               "nonfinite_params_max": 0.0, "downscales": {},
+               "first_metrics": None, "last_metrics": None}
     last_points = {}
     pending: list = []   # (step, image indices, metrics of device scalars)
 
@@ -237,6 +306,10 @@ def main(argv=None):
                     "after": points, "dropped": int(m["refine_dropped"])})
             last_points.clear()
             last_points[s] = points
+            summary["last_metrics"] = {"step": s, "loss": m["loss"],
+                                       "psnr": m["psnr"]}
+            if summary["first_metrics"] is None:
+                summary["first_metrics"] = summary["last_metrics"]
         last_step = pending[-1][0]
         pending.clear()
         if cap_policy == "ignore" or window_overflow <= 0:
@@ -290,21 +363,41 @@ def main(argv=None):
                 k = min(k, (prd - r if r else 0) + 1)
         return max(k, 1)
 
+    # the live viewer (reference init_viewer, base.py:755-762): frames of
+    # the current state, the training stats, a pause button
+    live_viewer = None
+    step_lock = contextlib.nullcontext()
+    if args.viewer_port:
+        from . import viewer as viewer_mod
+
+        live_viewer = viewer_mod.Viewer(
+            viewer_mod.novel_view_renderer(
+                lambda: (tcfg, state), statics,
+                data.get_batch(int(train_indices[0]))),
+            port=args.viewer_port).start()
+        step_lock = live_viewer.lock
+        logger.info(f"live viewer at http://127.0.0.1:{live_viewer.port}/")
+
     start_step = step = int(state.step)
     t0 = time.perf_counter()
+    t_win, win_start = t0, start_step
     t_warm, warm_step, ckpt_s = None, None, 0.0
     while step < max_steps:
-        if vis_freq > 0 and step % vis_freq == 0:
-            visualize(step)
-        if refresh_every > 0 and step > 0 and step % refresh_every == 0:
-            refresh_error_buffer()
+        if live_viewer is not None:
+            live_viewer.wait_if_paused()
         ds = sched_downscale(step)
         k = window_len(step)
-        idxs = [int(sampler.propose(train_indices)) for _ in range(k)]
-        for j, idx in enumerate(idxs):
-            state, metrics = trainer.train_step(tcfg, statics, state,
-                                                data.get_batch(idx, ds))
-            pending.append((step + j, [idx], metrics))
+        with step_lock:
+            if vis_freq > 0 and step % vis_freq == 0:
+                visualize(step)
+            if (refresh_every > 0 and step > 0 and step % refresh_every == 0
+                    and not synthetic_mode):
+                refresh_error_buffer()
+            idxs = [int(sampler.propose(train_indices)) for _ in range(k)]
+            for j, idx in enumerate(idxs):
+                state, metrics = trainer.train_step(tcfg, statics, state,
+                                                    data.get_batch(idx, ds))
+                pending.append((step + j, [idx], metrics))
         summary["downscales"][str(ds)] = summary["downscales"].get(
             str(ds), 0) + k
         last = step + k - 1       # post-step events key off the window end
@@ -315,10 +408,22 @@ def main(argv=None):
                 t_warm, warm_step = time.perf_counter(), last + 1
         if last % log_every == 0:
             flush_pending()
-            m = {kk: float(v) for kk, v in metrics.items()
+            fetched = {kk: float(v) for kk, v in metrics.items()}
+            m = {kk: v for kk, v in fetched.items()
                  if not kk.startswith("loss/")}
             mlogger.update(**m)
             mlogger.dump(last)
+            tbw.scalars(fetched, last)
+            wb.scalars(fetched, last)
+            now = time.perf_counter()
+            win_ms = (now - t_win) / max(last - win_start, 1) * 1e3
+            t_win, win_start = now, last
+            if live_viewer is not None:
+                live_viewer.update_stats(
+                    step=last, steps_per_s=1e3 / max(win_ms, 1e-9),
+                    num_points=sum(int(v) for kk, v in fetched.items()
+                                   if kk.startswith("num_points/")),
+                    loss=m["loss"])
             logger.info(
                 f"step {last}/{max_steps} "
                 + " ".join(f"{kk}={v:.4f}" for kk, v in m.items())
@@ -331,6 +436,9 @@ def main(argv=None):
         step += k
     flush_pending()
     t_end = time.perf_counter()
+    if live_viewer is not None:
+        summary["viewer_frames"] = live_viewer.frames_served
+        live_viewer.stop()
     counts = launch_counts()
     path = save(step=max_steps)
     logger.info(f"final checkpoint: {path}")
@@ -351,17 +459,22 @@ def main(argv=None):
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
         "final_points": last_points.get(max_steps - 1),
+        "image_hw": list(data.get_batch(int(train_indices[0]))[
+            "pixels"].shape[:2]),
     })
 
-    # quick eval on the test split
-    if len(test_indices):
+    # quick eval on the test split (in synthetic mode on every frame)
+    eval_indices = train_indices if synthetic_mode else test_indices[:20]
+    if len(eval_indices):
         results = render_loop.render_images(
-            tcfg, state, statics, data, test_indices[:20],
+            tcfg, state, statics, data, eval_indices,
             neighbor_map=neighbor_map, compute_metrics=True)
         agg = render_loop.aggregate_metrics(results["metrics"])
         logger.info(f"test metrics: {agg}")
         with open(os.path.join(log_dir, "test_metrics.json"), "w") as f:
             json.dump(agg, f, indent=2)
+    tbw.close()
+    wb.close()
     with open(os.path.join(log_dir, "train_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     return summary

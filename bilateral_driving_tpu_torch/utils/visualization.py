@@ -393,9 +393,9 @@ def snapshot_grid(render_out: Dict, cam_names: List[str],
     return np.concatenate(rows, axis=0)
 
 
-def save_png(img: np.ndarray, path: str) -> None:
-    """Write a float [0,1] (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA
-    image as an 8-bit PNG, scaled as the JAX package's PIL writer scales it
+def png_bytes(img: np.ndarray) -> bytes:
+    """A float [0,1] (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA image
+    as 8-bit PNG bytes, scaled as the JAX package's PIL writer scales it
     (x 255, truncated): one IDAT of zlib-compressed rows, each with filter
     0."""
     arr = np.ascontiguousarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
@@ -408,12 +408,18 @@ def save_png(img: np.ndarray, path: str) -> None:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xffffffff))
 
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0,
+                                         0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def save_png(img: np.ndarray, path: str) -> None:
+    """Write `img` as png_bytes encodes it."""
+    data = png_bytes(img)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0,
-                                             0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
+        f.write(data)
 
 
 # --------------------------------------------------------------------------

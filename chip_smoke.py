@@ -151,10 +151,20 @@ Phases, each printed on its own line with its result and elapsed seconds:
             grids, omnire_ms_bilateral_extended, pvg, deformablegs): 20
             steps of the fixture, a resume from step 11, tools.eval, the
             seven side by side
+  cli_synthetic  tools.train --config synthetic at the YAML's full size
+            for its 200 steps with the live viewer on (a frame and the
+            stats fetched while training is paused), a resume from the
+            step-100 checkpoint bit-equal to the uninterrupted run at step
+            200, the TensorBoard event file read back, the source backup,
+            the final background exported as a ply
+  cli_downscale  tools.train on proto_scene with data.downscale=2 (the
+            port's resize at load, PIL blocked) for 20 steps, side by
+            side with cli_synthetic's resume
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral, omnire, background_variants and render_cli paths), the card's name and power limit as
+omnire_bilateral, omnire, background_variants, render_cli, cli_synthetic
+and cli_downscale paths), the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
 a run without CUDA or outside a checkout of the repository.
@@ -288,6 +298,20 @@ RENDER_TRAJ, RENDER_FRAMES = "front_center_interp", 60
 # timed BACKGROUND_TIMED_STEPS times, a test view
 BACKGROUNDS = (("pvg", "pvg"), ("deformgs", "deformablegs"))
 BACKGROUND_TIMED_STEPS = 3
+# the synthetic preset through the CLI at its full size (128 x 96, 3,000 of
+# 8,192 background slots, SH 1, EnvLight 32) for its 200 steps with the
+# live viewer on: a frame fetched once /stats reports step SYNTH_VIEW_STEP;
+# then a resume from the checkpoint written after step 100
+# (checkpoint_101), bit-equal to the uninterrupted run at step 200; the
+# final background exported as a ply above SYNTH_PLY_ALPHA
+SYNTH_STEPS, SYNTH_RESUME, SYNTH_HW = 200, 101, (96, 128)
+SYNTH_VIEW_STEP, SYNTH_PLY_ALPHA = 20, 0.05
+# proto_scene (96 x 64) loaded at half size by the port's resize with PIL
+# blocked, the presets' 20 steps
+DOWNSCALE_OVERRIDES = [o for o in CLI_PRESET_OVERRIDES
+                       if not o.startswith("data.downscale")] + [
+    "data.downscale=2"]
+DOWNSCALE_HW = (32, 48)
 # runs a module as __main__ with PIL made unimportable
 NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
           "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
@@ -2004,13 +2028,18 @@ def background_variants(args, dev, scene_rng, batches):
 
 
 def png_rows(path: str):
-    """(height, width, channels) of an 8-bit PNG and the bytes its IDAT
-    chunks decompress to, read with zlib and struct (no PIL)."""
+    """(height, width, channels) of an 8-bit PNG file and the bytes its
+    IDAT chunks decompress to (png_blob_rows)."""
+    with open(path, "rb") as f:
+        return png_blob_rows(f.read(), path)
+
+
+def png_blob_rows(blob: bytes, path: str = "PNG"):
+    """(height, width, channels) of 8-bit PNG bytes and the bytes their
+    IDAT chunks decompress to, read with zlib and struct (no PIL)."""
     import struct
     import zlib
 
-    with open(path, "rb") as f:
-        blob = f.read()
     check(blob[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
     pos, idat, ihdr = 8, b"", None
     while pos < len(blob):
@@ -2226,6 +2255,242 @@ def cli_presets(dev):
           side_by_side="the presets ran at once: no steps/s from them",
           device=str(dev), nvidia_smi=nvidia_smi())
     shutil.rmtree(out)
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(port: int, path: str, post: bool = False):
+    """(content type, body) of a request to the viewer on 127.0.0.1."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=b"" if post else None,
+                                 method="POST" if post else "GET")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.headers.get("Content-Type"), r.read()
+
+
+def watch_viewer(proc, port: int) -> dict:
+    """While a training CLI with --viewer_port runs: poll /stats until it
+    reports step SYNTH_VIEW_STEP, pause training (POST /pause), fetch the
+    page and one frame, read /stats (paused), resume. Returns what was
+    seen."""
+    import urllib.error
+
+    while True:
+        check(proc.poll() is None, "the CLI exited before its viewer "
+              f"reported step {SYNTH_VIEW_STEP}")
+        try:
+            stats = json.loads(http(port, "/stats")[1])
+        except (urllib.error.URLError, ConnectionError):
+            stats = None
+        if stats is not None and stats["step"] >= SYNTH_VIEW_STEP:
+            break
+        time.sleep(0.05)
+    paused = json.loads(http(port, "/pause", post=True)[1])["paused"]
+    page_type, page = http(port, "/")
+    t1 = time.perf_counter()
+    frame_type, frame = http(port, "/frame?eye=0,-3,-6&look=0,0,12&t=0.5")
+    frame_s = time.perf_counter() - t1
+    during = json.loads(http(port, "/stats")[1])
+    resumed = json.loads(http(port, "/pause", post=True)[1])["paused"]
+    check(paused and during["paused"] and not resumed,
+          f"pause toggles: {paused}, {during}, {resumed}")
+    check(page_type == "text/html" and b"/frame?eye=" in page,
+          f"viewer page: {page_type}")
+    check(frame_type == "image/png", f"frame type {frame_type}")
+    h, w = SYNTH_HW
+    check(png_blob_rows(frame, "viewer frame") == (h, w, 3, h * (w * 3 + 1)),
+          "viewer frame size")
+    return {"stats": stats, "stats_while_paused": during,
+            "frame_bytes": len(frame), "frame_s": round(frame_s, 3)}
+
+
+def bit_equal(a, b, path: str = "") -> None:
+    """Raise unless two checkpoint trees hold the same keys and the same
+    bits in every tensor and array."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, dict):
+        check(set(a) == set(b), f"{path}: keys differ")
+        for k in a:
+            bit_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            bit_equal(x, y, f"{path}/{i}")
+    elif isinstance(a, torch.Tensor):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8),
+            b.reshape(-1).view(torch.uint8)), f"{path}: bits differ")
+    elif isinstance(a, np.ndarray):
+        check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+              f"{path}: bits differ")
+    else:
+        check(a == b, f"{path}: {a!r} != {b!r}")
+
+
+def cli_synthetic(dev):
+    """The cli_synthetic phase: tools.train --config synthetic (the
+    generated scene, its ground truth rendered by the forward, every
+    parameter perturbed) for SYNTH_STEPS steps with PIL blocked and the
+    live viewer on a free port (watch_viewer); then a resume from its
+    checkpoint_SYNTH_RESUME (side by side with the cli_downscale run),
+    bit-equal to the uninterrupted run's final checkpoint; the tb/ event
+    file read back (utils/tb.read_events: every
+    CRC valid, the scalar tags and steps the CLI logs), backup/ holding
+    tools/train.py, and the final background exported as a ply whose
+    vertex count is that of the live Gaussians above SYNTH_PLY_ALPHA; then
+    the cli_downscale phase. The run directories go to
+    work_dirs/chip_smoke_cli_synthetic and are removed after. Returns the
+    launches of the train run and of the cli_downscale run."""
+    import torch
+
+    from bilateral_driving_tpu_torch.utils import export, tb
+
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_synthetic")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    run_dir = os.path.join(out, "synthetic")
+    port = free_port()
+    t1 = time.perf_counter()
+    with open(os.path.join(out, "train.log"), "w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", NO_PIL,
+             "bilateral_driving_tpu_torch.tools.train", "--config",
+             "synthetic", "--output_root", out, "--run_name", "synthetic",
+             "--viewer_port", str(port)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            viewer = watch_viewer(proc, port)
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        check(proc.returncode == 0, f"tools.train exited {proc.returncode}:"
+              f"\n{log.read()[-3000:]}")
+    train_s = time.perf_counter() - t1
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    launched = summ["launches"]
+    check(summ["steps"] == SYNTH_STEPS, f"trained {summ['steps']} steps")
+    check(launched["segment_sum_rows"] == 0 and all(
+        launched[k] >= SYNTH_STEPS for k in TRAIN_PATH),
+          f"a kernel missed training steps of the CLI run: {launched}")
+    check(summ["nonfinite_params_max"] == 0 and summ["overflow_steps"] == 0,
+          f"guards: {summ}")
+    first, last = summ["first_metrics"], summ["last_metrics"]
+    check(first["step"] == 0 and last["step"] == SYNTH_STEPS - 1
+          and last["loss"] < first["loss"] and last["psnr"] > first["psnr"],
+          f"loss and PSNR did not improve: {first} -> {last}")
+    check(summ["viewer_frames"] >= 1 and tuple(summ["image_hw"]) == SYNTH_HW,
+          f"viewer frames {summ['viewer_frames']}, size {summ['image_hw']}")
+    with open(os.path.join(run_dir, "test_metrics.json")) as f:
+        frames_psnr = json.load(f)["psnr"]
+    check(math.isfinite(frames_psnr), f"frames PSNR {frames_psnr}")
+
+    ckpt = os.path.join(run_dir, "checkpoints",
+                        f"checkpoint_{SYNTH_RESUME}.pt")
+    check(os.path.exists(ckpt), f"no checkpoint {ckpt}")
+    # the resume and the cli_downscale run (which needs no steps/s of its
+    # own) side by side
+    t1 = time.perf_counter()
+    run_clis(("train", "--config", "synthetic", "--output_root", out,
+              "--run_name", "resume", "--resume_from", ckpt),
+             ("train", "--output_root", out, "--run_name", "half",
+              *DOWNSCALE_OVERRIDES))
+    resume_s = time.perf_counter() - t1
+    final = [torch.load(os.path.join(out, r, "checkpoints",
+                                     f"checkpoint_{SYNTH_STEPS}.pt"),
+                        map_location="cpu", weights_only=False)
+             for r in ("synthetic", "resume")]
+    for k in ("params", "aux", "masks", "stats", "opt", "step", "updates",
+              "generator", "extra"):
+        bit_equal(final[0][k], final[1][k], k)
+
+    tb_dir = os.path.join(run_dir, "tb")
+    files = os.listdir(tb_dir)
+    check(len(files) == 1 and files[0].startswith("events.out.tfevents."),
+          f"tb/: {files}")
+    events = tb.read_events(os.path.join(tb_dir, files[0]))
+    check(events[0]["file_version"] == tb.FILE_VERSION, "file_version")
+    logged = {}
+    for ev in events[1:]:
+        for v in ev["values"]:
+            logged.setdefault(v["tag"], []).append(ev["step"])
+    want_steps = list(range(0, SYNTH_STEPS, 20))
+    check({"loss", "psnr", "num_points/Background"} <= set(logged)
+          and all(steps == want_steps for steps in logged.values()),
+          f"tb scalars: { {k: v[:3] for k, v in logged.items()} }")
+    check(os.path.exists(os.path.join(run_dir, "backup", "tools",
+                                      "train.py")), "backup/tools/train.py")
+
+    params = final[0]["params"]["Background"]
+    mask = final[0]["masks"]["Background"]
+    ply = os.path.join(out, "background.ply")
+    written = export.export_gaussians_to_ply(ply, params, mask,
+                                             SYNTH_PLY_ALPHA)
+    live = int((mask.bool() & (torch.sigmoid(params["logit_opacities"][:, 0])
+                               > SYNTH_PLY_ALPHA)).sum())
+    with open(ply) as f:
+        header = [next(f) for _ in range(3)]
+    check(header[2] == f"element vertex {live}\n" and written == live > 0,
+          f"ply header {header[2]!r}, {live} live above {SYNTH_PLY_ALPHA}")
+    phase("cli_synthetic", t0, steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          peak_mem_bytes=summ["peak_mem_bytes"],
+          nonfinite_params=summ["nonfinite_params_max"],
+          first=first, last=last, frames_psnr=frames_psnr,
+          refines=summ["refines"], final_points=summ["final_points"],
+          launches=launched, viewer=viewer,
+          viewer_frames=summ["viewer_frames"],
+          resumed_from=SYNTH_RESUME, resume_bit_equal=True,
+          tb_events=len(events), tb_tags=len(logged), ply_points=live,
+          train_s=round(train_s, 2),
+          resume_and_downscale_s=round(resume_s, 2), device=str(dev),
+          nvidia_smi=nvidia_smi())
+    half_launches = cli_downscale(dev, out)
+    shutil.rmtree(out)
+    return launched, half_launches
+
+
+def cli_downscale(dev, out: str):
+    """The cli_downscale phase: the run cli_synthetic started beside its
+    resume under <out>/half, tools.train on proto_scene with
+    data.downscale=2 and PIL blocked (the port's resize at load), the
+    presets' 20 steps: the images at half size, the test PSNR finite.
+    Returns its launches."""
+    t0 = time.perf_counter()
+    with open(os.path.join(out, "half", "train_summary.json")) as f:
+        summ = json.load(f)
+    with open(os.path.join(out, "half", "test_metrics.json")) as f:
+        psnr = json.load(f)["psnr"]
+    launched = summ["launches"]
+    check(tuple(summ["image_hw"]) == DOWNSCALE_HW,
+          f"images loaded at {summ['image_hw']}")
+    check(summ["steps"] == CLI_PRESET_STEPS and all(
+        launched[k] >= CLI_PRESET_STEPS for k in TRAIN_PATH)
+          and summ["nonfinite_params_max"] == 0 and math.isfinite(psnr),
+          f"{summ['steps']} steps, launches {launched}, test PSNR {psnr}")
+    phase("cli_downscale", t0, image_hw=summ["image_hw"],
+          steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          peak_mem_bytes=summ["peak_mem_bytes"], test_psnr=psnr,
+          launches=launched, steps_side_by_side="with the synthetic "
+          "resume: no steps/s from them", device=str(dev),
+          nvidia_smi=nvidia_smi())
+    return launched
 
 
 def run_clis(*calls):
@@ -2725,6 +2990,12 @@ def main() -> int:
     cli_smpl(dev)
     cli_omnire(dev)
     cli_presets(dev)
+    synth_l, half_l = cli_synthetic(dev)
+    for k in kernels:
+        k["launches_cli_synthetic"] = {"train": synth_l[k["name"]],
+                                       "steps": SYNTH_STEPS}
+        k["launches_cli_downscale"] = {"train": half_l[k["name"]],
+                                       "steps": CLI_PRESET_STEPS}
 
     phase("total", t_start, seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,6 +28,7 @@ from bilateral_driving_tpu_torch.utils import config
 
 from test_torch_smpl_train import _torch_batch
 from test_torch_train import _jax_grads_by_path, _jax_reference_path, _rel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 OMNIRE_YAML = os.path.join(ROOT, "bilateral_driving_tpu", "configs",

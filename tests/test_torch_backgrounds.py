@@ -30,17 +30,17 @@ from bilateral_driving_tpu.train import density as jdensity
 from bilateral_driving_tpu.train import losses as jlosses
 from bilateral_driving_tpu.train import trainer as jtrainer
 from bilateral_driving_tpu.utils import config as jconfig
-from bilateral_driving_tpu.utils import trajectory as jtrajectory
 from bilateral_driving_tpu_torch import configs, convert
 from bilateral_driving_tpu_torch.data.scene import _pixel_viewdirs
 from bilateral_driving_tpu_torch.models import deform
 from bilateral_driving_tpu_torch.scene import deformable, pvg
 from bilateral_driving_tpu_torch.tools import common
-from bilateral_driving_tpu_torch.train import density, losses, trainer
+from bilateral_driving_tpu_torch.train import losses, trainer
 from bilateral_driving_tpu_torch.utils import config, trajectory
 
 from test_torch_smpl_train import _torch_batch
-from test_torch_train import _jax_grads_by_path, _jax_reference_path, _rel
+from test_torch_train import _jax_reference_path, _rel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 W, H, FRAMES, R = 96, 64, 4, 16
@@ -247,101 +247,6 @@ def _refine_inputs(rng, cap=300, live=200):
         *(np.asarray(x, np.float32) for x in stats))
 
 
-@pytest.mark.parametrize("no_time_split", [True, False])
-def test_pvg_refine_matches_jax(no_time_split):
-    """One PVG refinement (step 3400, pvg.yaml's density block around a
-    scene origin): the same alive slots and children; every child's fields
-    but its drawn position and time equal the JAX package's, a split
-    child's position and time equal its parent's plus the port's own
-    draws; a duplicate equals its parent."""
-    rng = np.random.default_rng(4)
-    params, alive, stats = _refine_inputs(rng)
-    dens = dict(configs.PVG_TREE["density"], no_time_split=no_time_split)
-    jcfg = jdensity.DensityConfig(**{k: v for k, v in dens.items()
-                                     if k in jdensity.DensityConfig._fields})
-    tcfg = density.DensityConfig(**jcfg._asdict())
-    origin, scale, cycle = (1.0, 0.0, -2.0), 0.5, 0.2
-    jp, _, jalive, jtouched, jinfo = jax.jit(
-        lambda p, a, st: jdensity.refine(
-            jax.random.key(0), p, {}, a, st, 3400, scale, jcfg,
-            num_train_images=4, pvg_cycle=cycle, scene_origin=origin))(
-        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(alive),
-        jdensity.DensityStats(*map(jnp.asarray, stats)))
-    gen = torch.Generator().manual_seed(7)
-    tp, _, talive, ttouched, tinfo = density.refine(
-        gen, {k: _t(v) for k, v in params.items()}, {}, _t(alive),
-        density.DensityStats(*map(_t, stats)), 3400, scale, tcfg,
-        num_train_images=4, pvg_cycle=cycle, scene_origin=origin)
-    np.testing.assert_array_equal(ttouched.numpy(), np.asarray(jtouched))
-    for k in ("splits", "dups", "dropped"):
-        assert int(tinfo[k]) == int(jinfo[k]), k
-    assert int(tinfo["splits"]) > 0 and int(tinfo["dups"]) > 0
-    assert int(tinfo["culled"]) > 0 and int(tinfo["dropped"]) == 0
-    touched = ttouched.numpy()
-    jp = {k: np.asarray(v) for k, v in jp.items()}
-    for k in density.PER_POINT_KEYS:
-        got = tp[k].numpy()
-        rows = ~touched if k in ("means", "taus") else slice(None)
-        np.testing.assert_allclose(got[rows], jp[k][rows], rtol=1e-6,
-                                   atol=1e-7, err_msg=k)
-    # children by parent (sh_dc rows are distinct draws): split children
-    # first (pass 0, pass 1), a duplicate last
-    replay = torch.Generator().manual_seed(7)
-    draws = []
-    for _ in range(tcfg.n_split_samples):
-        eps = torch.randn((alive.size, 3), generator=replay).numpy()
-        t_eps = torch.randn((alive.size,), generator=replay).numpy()
-        draws.append((eps, t_eps))
-    rot = jax.device_get(jax.vmap(_rotmat)(jnp.asarray(params["quats"])))
-    scale_xyz, beta = np.exp(params["log_scales"]), np.exp(params["log_betas"])
-    key_of = {params["sh_dc"][i].tobytes(): i for i in range(alive.size)}
-    children = {}
-    for d in np.flatnonzero(touched):
-        children.setdefault(key_of[tp["sh_dc"][d].numpy().tobytes()],
-                            []).append(d)
-    n_split, split_child = 0, np.zeros(alive.size, bool)
-    for src, ds in children.items():
-        kinds = (["split", "split", "dup"] if len(ds) == 3 else
-                 ["split", "split"] if len(ds) == 2 else ["dup"])
-        for s, (d, kind) in enumerate(zip(sorted(ds), kinds)):
-            if kind == "dup":
-                for k in ("means", "taus"):
-                    np.testing.assert_array_equal(tp[k][d].numpy(),
-                                                  tp[k][src].numpy())
-                continue
-            n_split += 1
-            split_child[d] = True
-            eps, t_eps = draws[s]
-            te = t_eps[src] * beta[src]
-            v_eff = params["velocity"][src] * np.exp(-0.5 * beta[src] / cycle)
-            want = (params["means"][src] + rot[src] @ (scale_xyz[src]
-                                                       * eps[src])
-                    + v_eff * te)
-            np.testing.assert_allclose(tp["means"][d].numpy(), want,
-                                       rtol=1e-5, atol=1e-6)
-            np.testing.assert_allclose(float(tp["taus"][d]),
-                                       params["taus"][src] + te, rtol=1e-5,
-                                       atol=1e-7)
-    assert n_split == 2 * int(tinfo["splits"])
-    # a split child's cull depends on its drawn position (the size factor
-    # around the origin): the same slots live elsewhere, and a split child
-    # lives by the cull rule at its own position
-    talive = talive.numpy()
-    np.testing.assert_array_equal(talive[~split_child],
-                                  np.asarray(jalive)[~split_child])
-    m = tp["means"].numpy()[split_child]
-    g = np.linalg.norm(m - np.asarray(origin, np.float32), axis=-1) \
-        * scale - 1.0
-    gamma = np.where(g <= 1.0, 1.0, g) / scale
-    culls = ((1 / (1 + np.exp(-tp["logit_opacities"].numpy()[split_child,
-                                                               0]))
-              < jcfg.cull_alpha_thresh)
-             | (np.exp(tp["log_scales"].numpy()[split_child]).max(-1)
-                > jcfg.cull_scale_thresh * scale * gamma)
-             | (stats.max_radii[split_child] > jcfg.cull_screen_size))
-    np.testing.assert_array_equal(talive[split_child], ~culls)
-
-
 def _rotmat(q):
     from bilateral_driving_tpu.core import transforms
 
@@ -445,68 +350,3 @@ def _step(name):
                                                *tg)
     return dict(name=name, jg=jg, tg=tg, tm=tm, state=state, jsc=jsc,
                 batch=jb, traj=traj, novel=novel)
-
-
-@pytest.fixture(scope="module", params=["pvg", "deformablegs"])
-def step(request):
-    return _step(request.param)
-
-
-def test_step_matches_jax_leaf_by_leaf(step):
-    """Losses within 1e-5; every gradient leaf (taus, log_betas and
-    velocity; the Background network's) non-zero and within GRAD_RTOL;
-    the density statistics the update accumulates (PVG's |dL/dtau| too)
-    against the JAX step's gradients and radii."""
-    jg, tg = step["jg"], step["tg"]
-    assert set(tg[1]) == set(jg[1])
-    for k in jg[1]:
-        np.testing.assert_allclose(float(tg[1][k]), float(jg[1][k]),
-                                   rtol=1e-5, atol=1e-7, err_msg=k)
-    want = _jax_grads_by_path(jg[3])
-    got = {k: v.numpy() for k, v in tg[3].items()}
-    assert set(got) == set(want)
-    extra = ({"Background/taus", "Background/log_betas",
-              "Background/velocity"} if step["name"] == "pvg" else
-             {"Background/deform_net/trunk.0.weight",
-              "Background/deform_net/heads.scale.bias"})
-    assert extra <= set(got)
-    if step["name"] == "pvg":
-        assert {"loss/opacity_entropy", "loss/inverse_depth_smoothness",
-                "loss/Background_velocity_reg"} <= set(step["tm"])
-    for k in got:
-        assert np.any(got[k]), f"zero gradient of {k}"
-    rel = {k: _rel(got[k], want[k]) for k in want}
-    worst = max(rel, key=rel.get)
-    assert rel[worst] < GRAD_RTOL, (worst, rel[worst])
-    assert _rel(tg[4].numpy(), np.asarray(jg[4])) < GRAD_RTOL
-    st = step["state"].stats["Background"]
-    n_bg = st.vis_count.shape[0]
-    vis = (np.asarray(jg[2]["info"]["radii"])[:n_bg] > 0).astype(np.float32)
-    np.testing.assert_array_equal(st.vis_count.numpy(), vis)
-    h, w = step["batch"]["pixels"].shape[:2]
-    screen = np.asarray(jg[4])[:n_bg] * np.array([w / 2.0, h / 2.0])
-    assert _rel(st.grad_norm.numpy(),
-                np.linalg.norm(screen, axis=-1) * vis) < GRAD_RTOL
-    if step["name"] == "pvg":
-        assert np.any(st.t_grad.numpy())
-        assert _rel(st.t_grad.numpy(), np.abs(np.asarray(
-            jg[3]["Background"]["taus"])) * vis) < GRAD_RTOL
-    assert float(step["tm"]["nonfinite_params"]) == 0
-    np.testing.assert_allclose(float(step["tm"]["loss"]), float(jg[0]),
-                               rtol=1e-5)
-
-
-def test_novel_view_frame_matches_jax():
-    """A front_center_interp pose (the trajectory within 1e-6 of the JAX
-    package's) through trainer.forward(novel_view=True, in_test_set=True),
-    the sky from that pose's view directions, against the JAX package's
-    forward on the PVG state (compiled with its step)."""
-    step = _step("pvg")
-    np.testing.assert_allclose(
-        step["traj"], jtrajectory.get_novel_trajectory(
-            {0: np.asarray(step["jsc"].cameras)}, "front_center_interp", 7),
-        atol=1e-6)
-    jo, to = step["novel"]
-    assert float(np.asarray(jo["opacity"]).mean()) > 0.05
-    np.testing.assert_allclose(to["rgb"].numpy(), np.asarray(jo["rgb"]),
-                               atol=3e-5)

@@ -7,18 +7,15 @@ kernels run in interpret mode, as the JAX package's own tests run them. The
 CUDA kernels are held against these plain versions on the card by
 chip_smoke.py.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bilateral_driving_tpu.ops import cubemap as jcubemap
-from bilateral_driving_tpu.ops import pipeline as jpipeline
-from bilateral_driving_tpu.ops import rasterize_pallas, segsum_pallas
-from bilateral_driving_tpu_torch.ops import (binning, cubemap, cubemap_cuda,
-                                             pipeline, rasterize_cuda,
-                                             segsum_cuda)
+from bilateral_driving_tpu.ops import rasterize_pallas
+from bilateral_driving_tpu_torch.ops import (binning, cubemap_cuda, pipeline,
+                                             rasterize_cuda, segsum_cuda)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WIDTH, HEIGHT = 96, 64
 NTX, NTY = binning.num_tiles(WIDTH, HEIGHT)
@@ -159,43 +156,6 @@ def _chunk_parallel_bwd(feats, starts, counts, n_live, ckpt_off, ckpt,
     return dfeats, pairs
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_chunk_parallel_backward_matches_the_serial_walk(seed):
-    """The backward kernel runs every live (tile, chunk) pair on its own,
-    the pairs tied only by their carries. That decomposition, in PyTorch,
-    against rasterize_bwd_plain's walk of each tile's chunks in reverse:
-    tiles 0 and 1 and tiles 4 and 5 share a chunk, tile 2 stops early,
-    tile 3 has no entries."""
-    feats, starts, counts, gout = _tile_inputs(seed)
-    tf, ts, tcn = (torch.from_numpy(x) for x in (feats, starts, counts))
-    tg = torch.from_numpy(gout)
-    _, live, ckpt_off, ckpt = rasterize_cuda.rasterize_fwd(
-        tf, ts, tcn, WIDTH, HEIGHT, residuals=True)
-    want = rasterize_cuda.rasterize_bwd_plain(tf, ts, tcn, live, ckpt_off,
-                                              ckpt, tg, WIDTH, HEIGHT)
-    got, pairs = _chunk_parallel_bwd(tf, ts, tcn, live, ckpt_off, ckpt, tg)
-
-    # one pair per live chunk, each in its own slot; the empty tile has none
-    # and the chunks shared by two tiles are two pairs each
-    assert live[3] == 0 and all(t != 3 for t, _, _ in pairs)
-    assert len(pairs) == int(live.sum())
-    assert len({slot for _, _, slot in pairs}) == len(pairs)
-    assert max(slot for _, _, slot in pairs) < ckpt.shape[0]
-    fc = [s // 128 for s in starts]
-    for t0, t1 in ((0, 1), (4, 5)):
-        shared = [(t, slot) for t, c, slot in pairs if fc[t] + c
-                  == (starts[t1]) // 128 and t in (t0, t1)]
-        assert len(shared) == 2 and shared[0][1] != shared[1][1]
-    # the same entries written, each row within 1e-6 of its norm (measured
-    # 1.0e-7 to 1.3e-7 over seeds 0-3): the two form the suffix sums in
-    # other orders (the walk takes float32 suffix sums from the chunk's
-    # end, the decomposition float64 S less its float64 prefix, as the
-    # kernel does)
-    np.testing.assert_array_equal((got != 0).numpy(), (want != 0).numpy())
-    for r in range(10):
-        assert _rel(got[r].numpy(), want[r].numpy()) < 1e-6, r
-
-
 def _segments(seed, n, cap, kind="mixed"):
     """Offsets with empty, short and a few long segments, clamped to cap
     like an overflowing frame's. "long": one Gaussian owns most of cap;
@@ -213,116 +173,11 @@ def _segments(seed, n, cap, kind="mixed"):
     return offsets.astype(np.int32)
 
 
-@pytest.mark.parametrize("n,cap,row0,kind", [
-    pytest.param(300, 2048, 4, "mixed", id="300-2048-4"),
-    pytest.param(700, 1024, 6, "mixed", id="700-1024-6"),
-    pytest.param(100, 2048, 4, "long", id="one-long-segment"),
-    pytest.param(33, 1024, 5, "mixed", id="count-not-multiple-of-32"),
-    pytest.param(200, 1024, 6, "clamped", id="clamped-offsets")])
-def test_segment_sums_match_pallas_kernels(n, cap, row0, kind):
-    assert cap % 1024 == 0
-    offsets = _segments(n, n, cap, kind)
-    if kind == "long":
-        assert np.diff(offsets).max() > cap // 2
-    if kind == "clamped":
-        assert offsets[n // 2 + 1] == cap > offsets[n // 2]
-    rng = np.random.default_rng(n)
-    data = rng.normal(size=(16, cap)).astype(np.float32)
-    jo = jnp.asarray(offsets)
-    want = np.asarray(segsum_pallas.segment_sum(jnp.asarray(data), jo,
-                                                interpret=True))
-    got = segsum_cuda.segment_sum(torch.from_numpy(data),
-                                  torch.from_numpy(offsets)).numpy()
-    # the TPU kernel sums in 3 bf16 limbs (about f32 accuracy)
-    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
-
-    rows = data[:10]
-    want_rows = np.asarray(segsum_pallas.segment_sum_rows(
-        tuple(jnp.asarray(r) for r in rows), jo, row0=row0, interpret=True))
-    got_rows = segsum_cuda.segment_sum_rows(
-        [torch.from_numpy(r) for r in rows], torch.from_numpy(offsets),
-        row0=row0).numpy()
-    np.testing.assert_allclose(got_rows, want_rows, rtol=3e-5, atol=3e-5)
-    assert np.all(got_rows[:row0] == 0) and np.all(got_rows[row0 + 10:] == 0)
-    np.testing.assert_array_equal(got_rows[row0:row0 + 10], got[:10])
-
-
 def _smooth_dirs(h, w):
     xs = np.linspace(-0.4, 0.4, w)
     ys = np.linspace(-0.3, 0.3, h)
     gx, gy = np.meshgrid(xs, ys)
     return np.stack([gx, gy, np.ones_like(gx)], -1).astype(np.float32)
-
-
-@pytest.mark.parametrize("dirs_kind", ["smooth", "random"])
-def test_splat_grad_matches_pallas_kernel(dirs_kind):
-    """R=128: smooth rays take the TPU kernel's window path, random ones
-    its scatter fallback."""
-    res = 128
-    rng = np.random.default_rng(3)
-    dirs = (_smooth_dirs(64, 64) if dirs_kind == "smooth"
-            else rng.normal(size=(64, 64, 3)).astype(np.float32))
-    g = rng.normal(size=(64, 64, 3)).astype(np.float32)
-    base = rng.uniform(0, 1, (6, res, res, 3)).astype(np.float32)
-    _, vjp = jax.vjp(lambda b: jcubemap.sample_splat_vjp(
-        b, jnp.asarray(dirs), True), jnp.asarray(base))
-    want = np.asarray(vjp(jnp.asarray(g))[0])
-
-    tb = torch.from_numpy(base).requires_grad_(True)
-    out = cubemap.sample_splat(tb, torch.from_numpy(dirs))
-    # texel coordinates (u / 2 + 1/2) R - 1/2 round at about R 2^-24 =
-    # 8e-6 at R=128, in other places in the two frameworks, so bilinear
-    # weights (and with them values and gradients) differ by up to ~1e-5
-    np.testing.assert_allclose(
-        out.detach().numpy(),
-        np.asarray(jcubemap.sample(jnp.asarray(base), jnp.asarray(dirs))),
-        atol=2e-5)
-    (got,) = torch.autograd.grad(out, tb, torch.from_numpy(g))
-    np.testing.assert_allclose(got.numpy(), want,
-                               atol=2e-5 * np.abs(want).max())
-
-    # padded pixels (face -1) add nothing
-    face, u0, v0, fu, fv = cubemap.corner_data(torch.from_numpy(dirs), res)
-    face = face.clone()
-    face[::2] = -1
-    dz = cubemap_cuda.splat_grad(face, u0, v0, fu, fv,
-                            torch.from_numpy(g.reshape(-1, 3)), res)
-    keep = slice(1, None, 2)
-    dz_odd = cubemap_cuda.splat_grad(face[keep], u0[keep], v0[keep], fu[keep],
-                                fv[keep], torch.from_numpy(
-                                    g.reshape(-1, 3)[1::2].copy()), res)
-    torch.testing.assert_close(dz, dz_odd, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("dirs_kind", ["smooth", "random"])
-def test_splat_gradient_has_the_texture_layout(dirs_kind):
-    """sample_splat's texture gradient comes in the texture's own shape and
-    strides ((6, R, R, 3) contiguous, what the optimizer is handed as
-    base.grad) and equals the JAX VJP, at R=128."""
-    res = 128
-    rng = np.random.default_rng(4)
-    dirs = (_smooth_dirs(48, 80) if dirs_kind == "smooth"
-            else rng.normal(size=(48, 80, 3)).astype(np.float32))
-    g = rng.normal(size=(48, 80, 3)).astype(np.float32)
-    base = rng.uniform(0, 1, (6, res, res, 3)).astype(np.float32)
-    _, vjp = jax.vjp(lambda b: jcubemap.sample_splat_vjp(
-        b, jnp.asarray(dirs), True), jnp.asarray(base))
-    want = np.asarray(vjp(jnp.asarray(g))[0])
-
-    tb = torch.from_numpy(base).requires_grad_(True)
-    cubemap.sample_splat(tb, torch.from_numpy(dirs)).backward(
-        torch.from_numpy(g))
-    assert tb.grad.shape == tb.shape and tb.grad.stride() == tb.stride()
-    assert tb.grad.is_contiguous()
-    # as in test_splat_grad_matches_pallas_kernel: bilinear weights round
-    # differently in the two frameworks by up to ~1e-5
-    np.testing.assert_allclose(tb.grad.numpy(), want,
-                               atol=2e-5 * np.abs(want).max())
-    face, u0, v0, fu, fv = cubemap.corner_data(torch.from_numpy(dirs), res)
-    dz = cubemap_cuda.splat_grad(face, u0, v0, fu, fv,
-                                 torch.from_numpy(g.reshape(-1, 3)), res)
-    assert dz.shape == (6, res, res, 3) and dz.is_contiguous()
-    torch.testing.assert_close(dz, tb.grad, rtol=0, atol=0)
 
 
 def _gaussians(seed, n=300):
@@ -340,54 +195,6 @@ def _gaussians(seed, n=300):
            for s in ((HEIGHT, WIDTH, 3), (HEIGHT, WIDTH, 1),
                      (HEIGHT, WIDTH, 1))]
     return (means, quats, scales, opac, colors, view, K), cot
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_pipeline_gradients_match_jax(seed):
-    """torch.autograd.grad of the port's rasterize against jax.vjp of the
-    JAX rasterize (XLA expansion; its Pallas expansion mis-handles sparse
-    tables, ROADMAP.md) with the same cotangents on rgb, depth and alpha,
-    and the screen-space gradient of means2d_dummy."""
-    inputs, cot = _gaussians(seed)
-    n = inputs[0].shape[0]
-    jcfg = jpipeline.RasterizeConfig(isect_capacity=2 ** 13, interpret=True,
-                                     pallas_expand=False)
-
-    def jf(means, quats, scales, opac, colors, dummy):
-        out = jpipeline.rasterize(means, quats, scales, opac, colors,
-                                  jnp.asarray(inputs[5]),
-                                  jnp.asarray(inputs[6]), WIDTH, HEIGHT,
-                                  jcfg, means2d_dummy=dummy)
-        return out["rgb"], out["depth"], out["alpha"]
-
-    jin = [jnp.asarray(x) for x in inputs[:5]] + [jnp.zeros((n, 2))]
-    jout, vjp = jax.vjp(jf, *jin)
-    want = vjp(tuple(jnp.asarray(c) for c in cot))
-
-    tin = [torch.from_numpy(x).requires_grad_(True) for x in inputs[:5]]
-    dummy = torch.zeros((n, 2), requires_grad=True)
-    out = pipeline.rasterize(*tin, torch.from_numpy(inputs[5]),
-                             torch.from_numpy(inputs[6]), WIDTH, HEIGHT,
-                             pipeline.RasterizeConfig(isect_capacity=2 ** 13),
-                             means2d_dummy=dummy)
-    assert float(out["alpha"].detach().mean()) > 0.2
-    for k, j in zip(("rgb", "depth", "alpha"), jout):
-        hit = np.asarray(jout[2]) > 0.2 if k == "depth" else Ellipsis
-        np.testing.assert_allclose(out[k].detach().numpy()[hit],
-                                   np.asarray(j)[hit], atol=1e-3 if
-                                   k == "depth" else 3e-5, rtol=1e-4)
-    got = torch.autograd.grad(
-        [out["rgb"], out["depth"], out["alpha"]], tin + [dummy],
-        [torch.from_numpy(c) for c in cot])
-    # 1e-4 relative norm per input. Both sides composite the same entries,
-    # but the JAX forward forms sigma from pixel monomials and its backward
-    # chains through pixel moments, so every transmittance and each conic
-    # gradient rounds differently: measured 1.2e-5 (colors) to 6.2e-5
-    # (scales) over seeds 0-2. The JAX package's own 1e-5 (Pallas against
-    # its XLA path) compares two backwards of one forward.
-    for name, a, b in zip(("means", "quats", "scales", "opacities", "colors",
-                           "means2d"), got, want):
-        assert _rel(a.numpy(), b) < 1e-4, (name, _rel(a.numpy(), b))
 
 
 def test_render_path_saves_no_residuals():
@@ -429,23 +236,3 @@ def test_backward_wrappers_raise_instead_of_falling_back():
                       segsum_cuda.segment_sum.launches,
                       segsum_cuda.segment_sum_rows.launches,
                       cubemap_cuda.splat_grad.launches)
-
-
-@pytest.mark.parametrize("form,n_rows,row0", [
-    ("stacked", 1, 0), ("stacked", 16, 0), ("split", 1, 15),
-    ("split", 16, 0), ("split", 10, 6)])
-def test_segment_sum_argument_forms_raise_without_cuda(form, n_rows, row0):
-    """The stacked input (one base pointer and a row stride) and the split
-    one (a pointer per row, landing at row0) raise on tensors off the CPU
-    when there is no card, and count no launch."""
-    data = torch.zeros((n_rows, 1024)).to("meta")
-    offsets = torch.from_numpy(_segments(0, 100, 1024)).to("meta")
-    before = (segsum_cuda.segment_sum.launches,
-              segsum_cuda.segment_sum_rows.launches)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        if form == "stacked":
-            segsum_cuda.segment_sum(data, offsets)
-        else:
-            segsum_cuda.segment_sum_rows(list(data), offsets, row0=row0)
-    assert before == (segsum_cuda.segment_sum.launches,
-                      segsum_cuda.segment_sum_rows.launches)

@@ -15,6 +15,7 @@ from bilateral_driving_tpu_torch import configs
 from bilateral_driving_tpu_torch.tools import common as port_common
 from bilateral_driving_tpu_torch.train import setup, trainer
 from bilateral_driving_tpu_torch.utils import config as port_config
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

@@ -25,6 +25,7 @@ from bilateral_driving_tpu_torch import convert
 from bilateral_driving_tpu_torch.data import scene
 from bilateral_driving_tpu_torch.eval import render_loop
 from bilateral_driving_tpu_torch.train import density, trainer
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FLAGSHIP_YAML = os.path.join(ROOT, "bilateral_driving_tpu", "configs",

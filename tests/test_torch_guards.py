@@ -18,6 +18,7 @@ import torch
 from bilateral_driving_tpu.ops import projection as jprojection
 from bilateral_driving_tpu_torch.core import gaussians
 from bilateral_driving_tpu_torch.ops import projection
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 96, 64
 

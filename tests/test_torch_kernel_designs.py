@@ -19,6 +19,7 @@ import torch
 from bilateral_driving_tpu.ops import expand_pallas, rasterize_pallas
 from bilateral_driving_tpu_torch.ops import (binning, expand_cuda,
                                              rasterize_cuda)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PIX = rasterize_cuda.PIX
 CHUNK = binning.CHUNK
@@ -131,16 +132,6 @@ def test_expand_window_owners_match_plain_and_xla(case):
                                       np.asarray(c).view(np.int32))
 
 
-def test_warp_owner_search_steps():
-    """The 32-pivot search finds the owner of every entry of a sparse
-    table, in at most ceil(log32(n)) + 1 steps."""
-    table, offsets, ni = _span_table(7, 5000, 3, 2, 0.7, 3, 1 << 20)
-    fill = binning.fill_monotone(torch.arange(5000, dtype=torch.int32),
-                                 torch.from_numpy(offsets[:-1]), ni).numpy()
-    for m in range(0, ni, 7):
-        assert _warp_owner(offsets, 5000, m) == fill[m]
-
-
 # ---- compositing forward: one cluster of k blocks per tile
 
 GATE_SIGMA = 5.5413 + 1e-3
@@ -186,34 +177,6 @@ def _random_entries(rng, n):
     return mx, my, ha, b, hc, lg
 
 
-def test_row_cull_drops_only_entries_the_gate_drops():
-    """Wherever _may_reach says an entry cannot reach a row, the kernel's
-    f32 alpha is below the gate at all 32 pixels of the row; and it says
-    so for most far entries, near the edge of the gate too."""
-    rng = np.random.default_rng(0)
-    n = 200_000
-    f32 = np.float32
-    mx, my, ha, b, hc, lg = _random_entries(rng, n)
-    py = f32(rng.integers(0, 32) + 0.5)
-    reach = _may_reach(mx, my, ha, b, hc, lg, py)
-    px = np.arange(32, dtype=f32) + f32(0.5)
-    with np.errstate(all="ignore"):
-        dx = px[None, :] - mx[:, None]
-        dy = (py - my)[:, None]
-        sigma = (ha[:, None] * dx * dx + hc[:, None] * dy * dy
-                 + b[:, None] * dx * dy - lg[:, None])
-        e = np.exp(-sigma)
-    alpha = np.where(e > f32(0.999), f32(0.999), e)
-    passes = (alpha >= f32(1.0 / 255.0)).any(1)
-    assert not (passes & ~reach).any()
-    assert (~reach).sum() > n // 4
-    # at the gate's edge: a Gaussian centred on the row, its least sigma
-    # -logop, is dropped from the row just above ln(255) + margin and kept
-    # at ln(255)
-    assert not bool(_may_reach(16.5, 16.5, 0.5, 0.0, 0.5, -5.56, 16.5))
-    assert bool(_may_reach(16.5, 16.5, 0.5, 0.0, 0.5, -5.5413, 16.5))
-
-
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
@@ -221,29 +184,6 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def test_bound_counts_the_kernels_row_test():
-    """chip_smoke.py's compositing bound leaves out the rows the kernel's
-    row test leaves out: its torch row test is _may_reach at all 32 rows,
-    and its counts lie between the blended pairs and every live pair."""
-    cs = _chip_smoke()
-    entries = _random_entries(np.random.default_rng(1), 50_000)
-    got = cs.may_reach_rows(*(torch.from_numpy(x) for x in entries))
-    want = np.stack([_may_reach(*entries, r + 0.5) for r in range(32)], -1)
-    np.testing.assert_array_equal(got.numpy(), want)
-    fs, starts, counts = _fwd_inputs(0, False)
-    plain = rasterize_cuda.rasterize_fwd_plain(fs, starts, counts, WIDTH,
-                                               HEIGHT)
-    blend = int(plain.n_blend)
-    work = cs.compositing_work(fs, starts, counts, plain.n_live, WIDTH,
-                               blend, cs.ENTRY_OPS, cs.BLEND_OPS)
-    n = work["live_entries"]
-    assert n == int(cs.tile_live_entries(starts, counts, plain.n_live).sum())
-    assert 0 < blend <= work["reach_pairs"] < work["live_pairs"] == n * PIX
-    assert work["ops"] == (n * (cs.ENTRY_OPS + 32 * cs.ROW_OPS)
-                           + work["reach_pairs"] * cs.PAIR_OPS
-                           + blend * cs.BLEND_OPS)
 
 
 def _cluster_fwd(feats, starts, counts, width: int, height: int, k: int,
@@ -379,40 +319,3 @@ def _pallas_fwd(key, fs, starts, counts):
         _PALLAS[key] = (np.asarray(img)[:, :5].reshape(-1, 5, PIX),
                         np.asarray(n_live))
     return _PALLAS[key]
-
-
-@pytest.mark.parametrize("k", [1, 4, 8])
-@pytest.mark.parametrize("seed,opaque", [(0, False), (1, True)])
-def test_cluster_forward_matches_plain_and_pallas(seed, opaque, k):
-    fs, starts, counts = _fwd_inputs(seed, opaque)
-    img, n_live, ckpt_off, ckpt, split = _cluster_fwd(fs, starts, counts,
-                                                      WIDTH, HEIGHT, k)
-    plain = rasterize_cuda.rasterize_fwd_plain(fs, starts, counts, WIDTH,
-                                               HEIGHT)
-    np.testing.assert_array_equal(n_live.numpy(), plain.n_live.numpy())
-    np.testing.assert_array_equal(ckpt_off.numpy(), plain.ckpt_off.numpy())
-    rgba = [0, 1, 2, 4]
-    for want, depth_rtol in ((plain.img.numpy(), 1e-4),) + (
-            (_pallas_fwd((seed, opaque), fs, starts, counts)[0], 1e-4),):
-        np.testing.assert_allclose(img.numpy()[:, rgba], want[:, rgba],
-                                   atol=3e-5, rtol=0)
-        np.testing.assert_allclose(img.numpy()[:, 3], want[:, 3],
-                                   rtol=depth_rtol, atol=3e-5 * 50)
-    np.testing.assert_array_equal(
-        n_live.numpy(), _pallas_fwd((seed, opaque), fs, starts, counts)[1])
-    # the live checkpoints: the entry transmittance of each live chunk
-    for t in range(starts.shape[0]):
-        s = slice(int(ckpt_off[t]), int(ckpt_off[t]) + int(n_live[t]))
-        np.testing.assert_allclose(ckpt[s].numpy(), plain.ckpt[s].numpy(),
-                                   atol=3e-5, rtol=0)
-    if opaque:
-        # tiles stop before their last chunk, and some went on after a
-        # chunk on the flags of some of their blocks only
-        nch = rasterize_cuda._chunk_counts(starts, counts)[3]
-        assert bool((n_live < nch).any())
-        assert k == 1 or split > 0
-    # the same bits whatever the cluster size, and with every entry of the
-    # range composited in every row
-    ref = _cluster_fwd(fs, starts, counts, WIDTH, HEIGHT, 1, cull=False)
-    for a, b in zip((img, n_live, ckpt), (ref[0], ref[1], ref[3])):
-        assert torch.equal(a, b)

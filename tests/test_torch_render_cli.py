@@ -11,7 +11,6 @@ import os
 
 import matplotlib.cm as cm
 import numpy as np
-import pytest
 from PIL import Image
 
 from bilateral_driving_tpu.eval import render_loop as jrender_loop
@@ -21,6 +20,7 @@ from bilateral_driving_tpu_torch.eval import render_loop
 from bilateral_driving_tpu_torch.tools import render as render_cli
 from bilateral_driving_tpu_torch.tools import train as train_cli
 from bilateral_driving_tpu_torch.utils import trajectory, visualization
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCENE = os.path.join(ROOT, "tests", "fixtures", "proto_scene")
@@ -98,20 +98,6 @@ def test_visualization_matches_jax():
     np.testing.assert_array_equal(
         visualization.draw_boxes(img, o2ws, sizes, np.eye(4), K),
         jvis.draw_boxes(img, o2ws, sizes, np.eye(4), K))
-
-
-@pytest.mark.parametrize("shape", [(7, 5, 3), (6, 9), (4, 3, 4)])
-def test_save_png_decodes_as_pil_writes(tmp_path, shape):
-    """The port's PNG, decoded by PIL, holds the bytes of the JAX
-    package's PIL-written PNG of the same float image."""
-    img = np.random.default_rng(3).uniform(-0.2, 1.2, shape).astype(
-        np.float32)
-    ours, theirs = str(tmp_path / "a.png"), str(tmp_path / "b.png")
-    visualization.save_png(img, ours)
-    jvis.save_png(img, theirs)
-    a, b = np.asarray(Image.open(ours)), np.asarray(Image.open(theirs))
-    assert a.dtype == np.uint8
-    np.testing.assert_array_equal(a, b)
 
 
 def test_render_cli_end_to_end(tmp_path):

@@ -3,16 +3,17 @@ the CPU: the keys, the stable sort and the run sums in PyTorch
 (ops/cubemap_cuda.splat_keys_plain, splat_order, splat_grad_sorted_plain)
 and a model of the sum kernel's block walk (its 32-way warp searches, its
 chunks of 256 entries and their run heads) against the plain version
-(four index_add_ passes) bit for bit and against the JAX package's
-splat_grad, interpret mode, at its own tolerance."""
-import jax
+(four index_add_ passes) bit for bit and against the texture gradient of
+the JAX package's plain sampler at its own tolerance."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bilateral_driving_tpu.ops import cubemap as jcubemap
 from bilateral_driving_tpu_torch.ops import cubemap, cubemap_cuda
+
+from test_torch_backward_splat import _plain_texture_grad
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TEXELS, THREADS = 1024, 256       # the sum kernel's block and chunk
 
@@ -96,14 +97,14 @@ def test_splat_order_equals_index_add_and_jax(kind, res):
     if res == 8:
         assert int(runs.max()) > THREADS       # a run spans chunks
 
-    # against the JAX package's splat_grad (interpret mode) on the same
-    # rays: its weights round elsewhere (tests/test_torch_backward.py)
+    # against the texture gradient of the JAX package's plain sampler on
+    # the same rays (tests/test_cubemap.py holds its Pallas splat to it):
+    # its weights round elsewhere (tests/test_torch_backward_splat.py)
     h, w = dirs.shape[:2]
     gj = np.where((face >= 0).numpy()[:, None], g.numpy(), 0.0)
-    base = jnp.zeros((6, res, res, 3))
-    _, vjp = jax.vjp(lambda b: jcubemap.sample_splat_vjp(
-        b, jnp.asarray(dirs), True), base)
-    jax_want = np.asarray(vjp(jnp.asarray(gj.reshape(h, w, 3)))[0])
+    jax_want = np.asarray(_plain_texture_grad(
+        jnp.zeros((6, res, res, 3)), jnp.asarray(dirs),
+        jnp.asarray(gj.reshape(h, w, 3), jnp.float32)))
     np.testing.assert_allclose(model, jax_want,
                                atol=2e-5 * np.abs(jax_want).max())
 
