@@ -1,13 +1,16 @@
 """The ported configurations as Python presets.
 
 The JAX package reads `bilateral_driving_tpu/configs/*.yaml` through
-PyYAML; the port carries the same trees here, every block of them, so the
-card path needs no YAML parser: FLAGSHIP_TREE is omnire_ms_bilateral.yaml,
-each other preset a variant of it named after its YAML (PRESETS). The CLI
-(tools/train.py) starts from a preset of PRESETS and applies `key=value`
-overrides; tools.common.trainer_config_from maps a tree onto
+PyYAML; the port carries the same trees here, every block of them:
+FLAGSHIP_TREE is omnire_ms_bilateral.yaml, each other preset a variant of
+it named after its YAML (PRESETS), and DATASET_PRESETS holds the 19
+dataset rigs of configs/datasets/<dataset>/<n>cams.yaml under
+"<dataset>/<n>cams". The CLI (tools/train.py) starts from a preset of
+PRESETS or a YAML file (utils/config.load_yaml), merges a rig and applies
+`key=value` overrides; tools.common.trainer_config_from maps a tree onto
 TrainerConfig. tests/test_torch_configs.py holds every preset equal to
-PyYAML's load of its YAML and to what the JAX package builds from it.
+PyYAML's load of its YAML and to what the JAX package builds from it,
+tests/test_torch_yaml.py every rig.
 """
 from __future__ import annotations
 
@@ -250,6 +253,18 @@ SYNTHETIC_TREE = {
     "sampler": {"buffer_ratio": 0.3},
     "logging": {"log_every": 20, "ckpt_every": 100},
 }
+
+# the dataset rigs of configs/datasets/<dataset>/<n>cams.yaml: dataset ->
+# (camera counts, downscale, test_image_stride); a rig's tree names cameras
+# 0 .. n-1
+_RIGS = {"argoverse": ((1, 3, 5, 7), 2, 0), "kitti": ((1, 2), 1, 0),
+         "nuplan": ((1, 3, 5, 8), 2, 0), "nuscenes": ((1, 3, 6), 3, 10),
+         "pandaset": ((1, 3, 6), 2, 0), "waymo": ((1, 3, 5), 2, 0)}
+DATASET_PRESETS = {
+    f"{ds}/{n}cams": {"data": {"dataset": ds, "cameras": list(range(n)),
+                               "downscale": down,
+                               "test_image_stride": stride, "num_cams": n}}
+    for ds, (counts, down, stride) in _RIGS.items() for n in counts}
 
 PRESETS = {"omnire_ms_bilateral": FLAGSHIP_TREE,
            "omnire_bilateral": OMNIRE_BILATERAL_TREE,

@@ -18,9 +18,10 @@ and decoder, the neural grids' MLP heads, the CP-4D factor banks), the
 camera refinements CamPose and CamPosePerturb, a PVG Background's taus,
 log betas and velocities, and a DeformableGS Background's network (its
 `deform_net`, a DeformNetwork without instance codes) with the
-contraction box in its statics. An MLP's static `skips`
-leaf is dropped: the port passes skips to encoders.mlp_apply, and every
-MLP carried here has none. `synthetic_scene_from_jax` carries the JAX
+contraction box in its statics, and the voxel skinning deformer's
+statics (a VoxelDeformerStatics whose `ratio` stays a float). An MLP's
+static `skips` leaf is dropped: the port's callers pass the skips to
+encoders.mlp_apply themselves (the sky head's (1,) among them). `synthetic_scene_from_jax` carries the JAX
 package's generated scene (data/synthetic.SyntheticScene: one camera, one
 rigid instance) into the port's SyntheticScene, so that
 tools/common.build_synthetic_scene builds from the same points.
@@ -32,7 +33,7 @@ import torch
 
 from .data import synthetic
 from .models.deform import DeformNetwork
-from .scene import smpl_model
+from .scene import smpl_model, voxel_deformer
 from .train import density, trainer
 
 
@@ -90,16 +91,20 @@ def _is_static(x) -> bool:
     return hasattr(x, "value") and not hasattr(x, "shape")
 
 
+def voxel_statics_from_jax(st, device):
+    t = lambda x: torch.from_numpy(np.array(x)).to(device)
+    return voxel_deformer.VoxelDeformerStatics(
+        t(st.lbs_voxel_base), t(st.offset), t(st.scale), float(st.ratio))
+
+
 def tree_from_jax(tree, device):
     """Dicts and lists recurse, arrays become tensors of the same dtype,
-    static leaves are dropped (an MLP's `skips` must be empty)."""
+    static leaves (an MLP's `skips`) are dropped."""
     if hasattr(tree, "a0_inv"):
         return smpl_template_from_jax(tree, device)
+    if hasattr(tree, "lbs_voxel_base"):
+        return voxel_statics_from_jax(tree, device)
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            if _is_static(v) and k == "skips" and tuple(v.value):
-                raise ValueError(f"an MLP with skips {v.value}: the port "
-                                 "keeps skips out of the tree")
         return {k: (deform_net_from_jax(v, device) if k == "deform_net"
                     else tree_from_jax(v, device)) for k, v in tree.items()
                 if not _is_static(v)}

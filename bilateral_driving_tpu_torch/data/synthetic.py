@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core import sh as sh_lib
-from ..models import bilateral, deform, encoders
+from ..models import bilateral, deform, encoders, sky
 from ..scene import pvg, smpl_model
 from ..train import setup, trainer
 from ..train.trainer import SceneState
@@ -202,9 +202,12 @@ def _smpl_state(g, d, cfg, smpl_verts: int, device):
     out = setup.build_smpl(
         g, model, betas.to(device), d["quats"][:, :, None, :],
         body.to(device), d["trans"], d["frame_valid"],
-        sh_degree=cfg.sh_degree)
+        sh_degree=cfg.sh_degree, use_voxel_deformer=cfg.use_voxel_deformer)
     n = out[0]["log_scales"].shape[0]
     out[0]["log_scales"] = torch.log(_u(g, (n, 3), 0.005, 0.03)).to(device)
+    if cfg.use_voxel_deformer:
+        corr = out[0]["voxel_w_correction"]
+        corr += 0.01 * torch.randn(corr.shape, generator=g).to(device)
     return out
 
 
@@ -215,12 +218,15 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
     Background of cfg.background_model (PVG's taus over the scaled time
     axis, life spans and velocities, or DeformableGS's network and
     contraction box), the rigid and deformable instances cfg turns on, the
+    sky of cfg.sky_model (an EnvLight texture of two scales of noise, or
+    the MLP sky's init; none for "none"), the
     appearance model cfg.affine_model names (grids near the identity, the
     other models' arrays moved off their zero or random init), the camera
     refinements cfg asks for (pose embeddings near zero), and with
     cfg.use_smpl SMPLNodes of the scene's walkers (bodies of
-    `smpl_verts` vertices, the SMPL mesh's count by default), drawn last.
-    Returns (SceneState, statics)."""
+    `smpl_verts` vertices, the SMPL mesh's count by default), drawn last,
+    their voxel deformer's correction (cfg.use_voxel_deformer) moved off
+    zero by 0.01 N(0, 1). Returns (SceneState, statics)."""
     g = generator
     params, statics, aux, masks = {}, {}, {}, {}
     params["Background"], masks["Background"] = _gaussian_params(
@@ -262,10 +268,13 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
         statics[name] = {"instances_fv": d["frame_valid"],
                          "instances_size": d["sizes"]}
         aux[name] = {"point_ids": d["point_ids"]}
-    res = cfg.envlight_resolution
-    base = (0.4 + 0.4 * torch.rand((6, 1, 1, 3), generator=g)
-            + 0.05 * torch.rand((6, res, res, 3), generator=g))
-    params["Sky"] = {"base": base.to(device)}
+    if cfg.sky_model == "envlight":
+        res = cfg.envlight_resolution
+        base = (0.4 + 0.4 * torch.rand((6, 1, 1, 3), generator=g)
+                + 0.05 * torch.rand((6, res, res, 3), generator=g))
+        params["Sky"] = {"base": base.to(device)}
+    elif cfg.sky_model == "mlp":
+        params["Sky"] = sky.init_sky_mlp(cfg.num_images, g, device=device)
     if cfg.affine_model == "bilateral":
         affine = bilateral.init_bilateral(
             cfg.num_images, *cfg.bilateral_grid_shape, device=device)
@@ -279,15 +288,16 @@ def random_state(scene: SyntheticScene, cfg, generator: torch.Generator,
         # array moved off its initial value (zero codes, decoders, heads,
         # feature grids and pose embeddings give no gradient to some leaves)
         models = setup.appearance_models(cfg, device, g)
-        affine = models.pop("Affine")
-        arrays = [p for _, p in trainer.named_leaves(affine)]
+        affine = models.pop("Affine", None)       # none: no appearance
+        arrays = [p for _, p in trainer.named_leaves(affine or {})]
         for name, model in models.items():
             model["embeds"] += 1e-3 * torch.randn(
                 model["embeds"].shape, generator=g).to(device)
             params[name] = model
     for x in arrays:
         x += 0.02 * torch.randn(x.shape, generator=g).to(device)
-    params["Affine"] = affine
+    if affine is not None:
+        params["Affine"] = affine
     if cfg.use_smpl:
         (params["SMPLNodes"], statics["SMPLNodes"], aux["SMPLNodes"],
          masks["SMPLNodes"]) = _smpl_state(g, scene.inst["SMPLNodes"], cfg,

@@ -7,10 +7,10 @@ between depth-backprojected point clouds (all, percentile-trimmed, per
 class) and depth RMSE / median squared error. Inputs are host numpy arrays,
 as in the JAX package; SSIM runs the training loss's SSIM on the CPU.
 
-LPIPS needs VGG weights that the repository does not hold: `lpips` returns
-None without them, as the JAX package does. With weights present it raises,
-since the LPIPS network (the JAX package's eval/lpips_jax.py) is not ported
-yet.
+LPIPS (eval/lpips.py) needs VGG weights that the repository does not hold:
+`lpips` computes it on the evaluation's device from the npz that
+BILATERAL_LPIPS_WEIGHTS or data/lpips_vgg.npz names
+(tools/export_lpips_weights.py writes it), and returns None without one.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..train import losses as loss_lib
+from . import lpips as lpips_mod
 
 
 def psnr(pred, gt, mask=None) -> float:
@@ -54,14 +55,23 @@ def _find_lpips_weights():
     return None
 
 
-def lpips(pred, gt) -> Optional[float]:
-    """None: the VGG weights are not in the repository."""
+# (weights path, its mtime, device) -> LPIPSParams
+_lpips_params: Dict[tuple, lpips_mod.LPIPSParams] = {}
+
+
+def lpips(pred, gt, device="cpu") -> Optional[float]:
+    """LPIPS of two (H, W, 3) images in [0, 1] on `device` in float32, or
+    None where no weights file is found."""
     path = _find_lpips_weights()
-    if path is not None:
-        raise NotImplementedError(
-            f"LPIPS weights found at {path}, but the LPIPS network is not "
-            "ported yet: the LPIPS slice")
-    return None
+    if path is None:
+        return None
+    key = (os.path.abspath(path), os.path.getmtime(path), str(device))
+    if key not in _lpips_params:
+        _lpips_params[key] = lpips_mod.load_weights_npz(path, device,
+                                                        torch.float32)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    with torch.no_grad():
+        return float(lpips_mod.lpips(_lpips_params[key], t(pred), t(gt)))
 
 
 def depth_to_points(depth: np.ndarray, K: np.ndarray,
@@ -133,12 +143,14 @@ def depth_metrics(pred_depth: np.ndarray, gt_depth: np.ndarray,
 
 
 def image_metrics(pred, gt, sky_mask=None, dynamic_mask=None,
-                  human_mask=None, vehicle_mask=None) -> Dict[str, float]:
-    """The reference's full per-image metric set (video_utils.py:273-361)."""
+                  human_mask=None, vehicle_mask=None,
+                  device="cpu") -> Dict[str, float]:
+    """The reference's full per-image metric set (video_utils.py:273-361);
+    LPIPS on `device`."""
     pred = np.asarray(pred)
     gt = np.asarray(gt)
     out = {"psnr": psnr(pred, gt), "ssim": ssim(pred, gt)}
-    lp = lpips(pred, gt)
+    lp = lpips(pred, gt, device)
     if lp is not None:
         out["lpips"] = lp
     if sky_mask is not None:

@@ -81,7 +81,8 @@ def render_images(cfg, state: trainer_mod.SceneState, statics, data,
                 sky_mask=_ds(data.sky_masks[idx], downscale),
                 dynamic_mask=_ds(data.dynamic_masks[idx], downscale),
                 human_mask=_ds(data.human_masks[idx], downscale),
-                vehicle_mask=_ds(data.vehicle_masks[idx], downscale))
+                vehicle_mask=_ds(data.vehicle_masks[idx], downscale),
+                device=pred.device)
             if compute_geo and data.lidar_depth_maps is not None:
                 depth_np = _np(depth)
                 gt_depth = _ds(data.lidar_depth_maps[idx], downscale)
@@ -131,8 +132,9 @@ def aggregate_metrics(per_image: List[Dict]) -> Dict[str, float]:
     if per_image and "lpips" not in out:
         # make the absence visible in every artifact
         out["lpips"] = None
-        out["lpips_note"] = "null: VGG weights not vendored " \
-            "(tools/export_lpips_weights.py)"
+        out["lpips_note"] = "null: no VGG weights found (the npz of " \
+            "tools/export_lpips_weights.py at BILATERAL_LPIPS_WEIGHTS or " \
+            "data/lpips_vgg.npz)"
     return out
 
 

@@ -1,5 +1,6 @@
 """Rigid vehicle nodes: port of bilateral_driving_tpu/scene/rigid.py
-(rendering and the out-of-box cull of refinement).
+(rendering, the out-of-box cull of refinement and the pose tracks'
+temporal smoothness).
 
 Gaussians live in instance-local frames; per-frame, per-instance pose
 tracks (quats (F, I, 4), trans (F, I, 3)) carry them to world. Test views
@@ -74,3 +75,17 @@ def out_of_bound_mask(params, statics) -> torch.Tensor:
     """Points outside their instance box."""
     sizes = statics["instances_size"][statics["point_ids"].long()]
     return torch.any(torch.abs(params["means"]) > sizes / 2.0, dim=-1)
+
+
+def temporal_smoothness_loss(params, statics, w_trans: float,
+                             w_quat: float) -> torch.Tensor:
+    """Squared differences of consecutive frames' instance quaternions and
+    translations, over the (frame, instance) pairs observed in both
+    frames, divided by their count."""
+    fv = statics["instances_fv"]
+    iq, it = params["instances_quats"], params["instances_trans"]
+    both = (fv[1:] & fv[:-1]).to(iq.dtype)
+    n = torch.clamp(torch.sum(both), min=1.0)
+    dq = torch.sum((iq[1:] - iq[:-1]) ** 2, dim=-1)
+    dt = torch.sum((it[1:] - it[:-1]) ** 2, dim=-1)
+    return (w_quat * torch.sum(dq * both) + w_trans * torch.sum(dt * both)) / n

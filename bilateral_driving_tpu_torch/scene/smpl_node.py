@@ -3,7 +3,9 @@
 Per instance V canonical Gaussians on or near the SMPL body, per-frame
 root quaternions (F, I, 1, 4), joint quaternions (F, I, 23, 4) and
 translations (F, I, 3); linear blend skinning carries points and
-orientations to the world. The point count is fixed at I V (no
+orientations to the world, with the mesh's skinning weights or, with the
+voxel deformer (scene/voxel_deformer.py), the weights of its learned
+voxel at each canonical point. The point count is fixed at I V (no
 densification); KNN smoothness regularisers keep neighbours alike. Test
 views slerp the neighbouring frames' poses. Every instance is computed
 in every frame and an invalid one gets zero opacity, so the shapes (and
@@ -16,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import gaussians as G, transforms
-from . import smpl_model
+from . import smpl_model, voxel_deformer as vd
 
 
 class SMPLConfig(NamedTuple):
@@ -55,21 +57,25 @@ def _frame_theta(params, statics, frame: int, num_frames: int,
 
 def gaussians(params, statics, mask, cam_origin, step: int, frame: int,
               num_frames: int, in_test_set: bool = False,
-              cfg: SMPLConfig = SMPLConfig()) -> G.Gaussians:
+              cfg: SMPLConfig = SMPLConfig(),
+              vd_statics: vd.VoxelDeformerStatics | None = None
+              ) -> G.Gaussians:
     """statics: template (smpl_model.SMPLTemplate), instances_fv (F, I)
     and point_ids (I V,). params: the Gaussian dict plus instances_quats,
-    smpl_quats and instances_trans."""
-    if cfg.use_voxel_deformer:
-        raise NotImplementedError("the voxel skinning deformer is not "
-                                  "ported yet: the voxel-deformer slice")
+    smpl_quats and instances_trans, and with cfg.use_voxel_deformer
+    voxel_w_correction, queried through `vd_statics`."""
     template: smpl_model.SMPLTemplate = statics["template"]
     num_inst = template.j_canonical.shape[0]
     V = params["means"].shape[0] // num_inst
     theta, t_ins, valid = _frame_theta(params, statics, frame, num_frames,
                                        in_test_set)
     A = smpl_model.skinning_transforms(template, theta)     # (I, 24, 4, 4)
-    posed, R = smpl_model.lbs_apply(template.lbs_weights, A,
-                                    params["means"].reshape(num_inst, V, 3))
+    means_i = params["means"].reshape(num_inst, V, 3)
+    if cfg.use_voxel_deformer and vd_statics is not None:
+        W = vd.query_weights(vd_statics, params, means_i)
+    else:
+        W = template.lbs_weights                             # (I, V, 24)
+    posed, R = smpl_model.lbs_apply(W, A, means_i)
     world_means = (posed + t_ins[:, None, :]).reshape(-1, 3)
     quats_i = transforms.quat_normalize(params["quats"]).reshape(
         num_inst, V, 4)

@@ -59,7 +59,7 @@ def main(argv=None):
 
     setup_logging(args.log_dir)
     cfg = config_lib.load_config(os.path.join(args.log_dir, "config.json"),
-                                 args.opts)
+                                 overrides=args.opts)
     tcfg, data, statics, state = train_cli.build(cfg, 0, dev)
     ckpt = args.checkpoint or checkpoint.latest_checkpoint(
         os.path.join(args.log_dir, "checkpoints"))

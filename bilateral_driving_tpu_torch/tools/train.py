@@ -5,14 +5,21 @@ device.
         --config omnire_ms_bilateral --output_root ./work_dirs \
         --run_name myrun data.scene_dir=/path/to/processed/scene \
         [data.pixel_pack=scene_pixels.npz] [--device cpu] [key=value ...]
+    python -m bilateral_driving_tpu_torch.tools.train \
+        --config_file my_method.yaml [--dataset_file my_rig.yaml] ...
 
-Starts from a preset of configs.PRESETS with dotted `key=value` overrides
-(YAML scalars and flow lists), builds the scene from its directory
-(tools/common.build_real_scene) or, with `data.synthetic` (the
-`synthetic` preset), the generated scene (build_synthetic_scene of
-tools/common: its ground truth rendered once by the forward, then every
-parameter moved by 0.05 N(0, 1) so training starts away from it), and
-trains it on `--device` (default cuda; no CPU fallback):
+Starts from a preset of configs.PRESETS (`--config`) or a method YAML
+(`--config_file`, read by utils/config.load_yaml without PyYAML), merges
+a dataset rig (`--dataset_file`, or the tree's `dataset` key, e.g.
+dataset=waymo/3cams, resolved against configs.DATASET_PRESETS, the port's
+copy of the JAX package's configs/datasets), then applies dotted
+`key=value` overrides (YAML scalars and flow lists), builds the scene
+from its directory (tools/common.build_real_scene) or, with
+`data.synthetic` (the `synthetic` preset), the generated scene
+(build_synthetic_scene of tools/common: its ground truth rendered once
+by the forward, then every parameter moved by 0.05 N(0, 1) so training
+starts away from it), and trains it on `--device` (default cuda; no CPU
+fallback):
 error-buffer importance sampling with its periodic refresh, the
 coarse-to-fine resolution schedule, `trainer.steps_per_dispatch`
 steps per window (a plain loop; host events land on window starts), a
@@ -33,7 +40,9 @@ tb/ (utils/tb, written by the port itself) and a copy of the port's
 sources in backup/ (utils/backup). In synthetic mode the metrics come
 from every frame, as every frame trains. `--viewer_port PORT` serves the
 live viewer (tools/viewer) while training; `--enable_wandb` logs to wandb
-where it is installed. The parallel flags wait for a later slice.
+where it is installed. The multi-GPU flags (--data_parallel,
+--tile_parallel, --coordinator, --num_processes, --process_id) are not
+ported yet: the parallel slice.
 """
 from __future__ import annotations
 
@@ -62,8 +71,14 @@ from . import common
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", default="omnire_ms_bilateral",
-                   choices=sorted(configs.PRESETS))
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--config", default=None,
+                     choices=sorted(configs.PRESETS),
+                     help="a preset (default omnire_ms_bilateral)")
+    src.add_argument("--config_file", default=None,
+                     help="a method YAML in the JAX package's schema")
+    p.add_argument("--dataset_file", default=None,
+                   help="a dataset rig YAML merged over the method's tree")
     p.add_argument("--output_root", default="./work_dirs")
     p.add_argument("--run_name", default="run")
     p.add_argument("--resume_from", default=None,
@@ -78,6 +93,28 @@ def parse_args(argv=None):
                         "(offline without an API key)")
     p.add_argument("opts", nargs="*", help="dotlist overrides key=value")
     return p.parse_args(argv)
+
+
+def config_tree(args) -> config_lib.ConfigDict:
+    """The run's tree: the preset or method YAML, merged with the dataset
+    rig of --dataset_file or of the tree's (or an override's) `dataset`
+    key, then the overrides (the JAX CLI's tools/train.py:68-92)."""
+    if args.config_file:
+        base = config_lib.load_yaml(args.config_file)
+    else:
+        base = config_lib.wrap(
+            configs.PRESETS[args.config or "omnire_ms_bilateral"])
+    if args.dataset_file:
+        rig = config_lib.load_yaml(args.dataset_file)
+    else:
+        name = config_lib.apply_dotlist(base, args.opts).get("dataset")
+        rig = configs.DATASET_PRESETS.get(name) if name else None
+        if name and rig is None:
+            logger.warning(f"dataset={name!r} names no rig of "
+                           f"{sorted(configs.DATASET_PRESETS)}: none merged")
+    if rig is not None:
+        base = config_lib.merge(base, rig)
+    return config_lib.apply_dotlist(base, args.opts)
 
 
 def device_of(name: str) -> torch.device:
@@ -142,8 +179,7 @@ def build_synthetic(cfg, seed: int, dev):
 def main(argv=None):
     args = parse_args(argv)
     dev = device_of(args.device)
-    cfg = config_lib.apply_dotlist(config_lib.wrap(configs.PRESETS[args.config]),
-                                   args.opts)
+    cfg = config_tree(args)
     synthetic_mode = bool(cfg.get_path("data.synthetic", False))
     log_dir = os.path.join(args.output_root, args.run_name)
     os.makedirs(log_dir, exist_ok=True)

@@ -227,7 +227,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     dev = train_cli.device_of(args.device)
     cfg = config_lib.load_config(os.path.join(args.log_dir, "config.json"),
-                                 args.opts)
+                                 overrides=args.opts)
     tcfg, data, statics, state = train_cli.build(cfg, 0, dev)
     ckpt = args.checkpoint or checkpoint.latest_checkpoint(
         os.path.join(args.log_dir, "checkpoints"))

@@ -1,7 +1,8 @@
 """Scene and model construction from a scene's initial points: port of
 bilateral_driving_tpu/train/setup.py for the vanilla, PVG and DeformableGS
-Backgrounds, RigidNodes, SMPLNodes, DeformableNodes, EnvLight, every
-appearance model (affine codes, the single, multi-scale, neural and CP-4D
+Backgrounds, RigidNodes, SMPLNodes (with or without the voxel skinning
+deformer), DeformableNodes, the EnvLight and MLP skies, every appearance
+model (affine codes, the single, multi-scale, neural and CP-4D
 bilateral grids) and camera refinement.
 
 Every random draw (quaternions, colours, instance codes, the deformation
@@ -17,7 +18,7 @@ from ..core import sampling, sh as sh_lib
 from ..models import affine as affine_mod
 from ..models import bilateral, camera_opt, deform, encoders, sky as sky_mod
 from ..scene import pvg as pvg_mod
-from ..scene import smpl_model, smpl_node
+from ..scene import smpl_model, smpl_node, voxel_deformer as vd
 
 INIT_OPACITY = 0.1
 
@@ -157,10 +158,10 @@ def build_smpl(generator, model: smpl_model.SMPLModel, betas,
     colours and 0.01 scales; where the model has a mesh, normal-aligned
     quaternions and 1-ring disk scales (smpl_model.mesh_init_qso). Returns
     (params, statics, aux, mask); statics hold the template, the KNN
-    indices of the regularisers and the init positions `on_mesh_x`."""
-    if use_voxel_deformer:
-        raise NotImplementedError("the voxel skinning deformer is not "
-                                  "ported yet: the voxel-deformer slice")
+    indices of the regularisers and the init positions `on_mesh_x`. With
+    `use_voxel_deformer` the statics also hold the deformer's voxel
+    (`vd_statics`, built from the template's vertices and weights) and the
+    parameters its zero correction `voxel_w_correction`."""
     template = smpl_model.make_template(model, betas)
     num_inst, V = template.verts_canonical.shape[:2]
     means = template.verts_canonical.reshape(-1, 3)
@@ -184,6 +185,10 @@ def build_smpl(generator, model: smpl_model.SMPLModel, betas,
     statics = {"template": template, "instances_fv": frame_valid,
                "nn_ind": smpl_node.compute_knn(means, num_inst, k=5),
                "on_mesh_x": means}
+    if use_voxel_deformer:
+        statics["vd_statics"], vd_params = vd.init_voxel_deformer(
+            template.verts_canonical, template.lbs_weights)
+        params["voxel_w_correction"] = vd_params["voxel_w_correction"]
     point_ids = torch.arange(num_inst, dtype=torch.int32,
                              device=dev).repeat_interleave(V)
     return params, statics, {"point_ids": point_ids}, mask
@@ -191,13 +196,20 @@ def build_smpl(generator, model: smpl_model.SMPLModel, betas,
 
 def build_models(cfg, device="cuda",
                  generator: torch.Generator | None = None):
-    """The non-Gaussian models keyed as the trainer expects: the EnvLight
-    sky, and appearance_models."""
-    if cfg.sky_model != "envlight":
-        raise NotImplementedError(f"sky_model={cfg.sky_model!r} is not "
-                                  "ported yet: the sky-MLP slice")
-    return {"Sky": sky_mod.init_envlight(cfg.envlight_resolution, device),
-            **appearance_models(cfg, device, generator)}
+    """The non-Gaussian models keyed as the trainer expects: the sky of
+    cfg.sky_model ("Sky": the EnvLight texture, or the MLP sky drawn from
+    `generator` before the appearance models; none for "none"), and
+    appearance_models."""
+    g = torch.Generator().manual_seed(0) if generator is None else generator
+    out = {}
+    if cfg.sky_model == "envlight":
+        out["Sky"] = sky_mod.init_envlight(cfg.envlight_resolution, device)
+    elif cfg.sky_model == "mlp":
+        out["Sky"] = sky_mod.init_sky_mlp(cfg.num_images, g, device=device)
+    elif cfg.sky_model != "none":
+        raise ValueError(f"unknown sky_model {cfg.sky_model!r}: "
+                         f"one of {sky_mod.SKY_MODELS}")
+    return {**out, **appearance_models(cfg, device, g)}
 
 
 def appearance_models(cfg, device="cuda",

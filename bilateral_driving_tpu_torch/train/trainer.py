@@ -1,10 +1,11 @@
 """Scene trainer: port of bilateral_driving_tpu/train/trainer.py for the
-vanilla, PVG and DeformableGS backgrounds with rigid, SMPL and deformable
-nodes, the EnvLight sky, every appearance model and camera refinement
-(configs.PRESETS).
+vanilla, PVG and DeformableGS backgrounds with rigid, SMPL (with or
+without the voxel skinning deformer) and deformable nodes, the EnvLight,
+MLP or no sky, every appearance model and camera refinement
+(configs.PRESETS, or any tree of the JAX package's schema).
 
 forward = camera refinement -> per-class Gaussians -> concat -> tiled
-rasterize -> EnvLight sky compositing -> appearance (affine codes, or the
+rasterize -> sky compositing -> appearance (affine codes, or the
 single, multi-scale, neural or CP-4D bilateral grids). A training
 step is compute_grads (forward, the loss stack and autograd, with a zeros
 `means2d_dummy` whose gradient is the per-Gaussian screen gradient) then
@@ -12,8 +13,7 @@ apply_grads_and_refine (Adam per parameter group at its scheduled rate,
 densification statistics and, every refine_interval steps, refinement of
 every class but the fixed-size SMPLNodes; PVG's temporal densification
 with it). PVG's temporal smoothing draws its offset from the state's
-generator. Other configurations' branches raise NotImplementedError naming
-the slice they wait for.
+generator.
 
 The JAX trainer is pure; here the state is updated in place: the optimizer
 steps the parameter tensors and refinement writes into them, so the
@@ -143,18 +143,13 @@ class SceneState(NamedTuple):
     step: int
 
 
-def _later(what: str, slice_: str):
-    return NotImplementedError(f"{what} is not ported yet: {slice_}")
-
-
 def _check_ported(cfg: TrainerConfig):
     if cfg.background_model not in ("vanilla", "pvg", "deformgs"):
         raise ValueError(f"unknown background_model "
                          f"{cfg.background_model!r}")
-    if cfg.use_smpl and cfg.use_voxel_deformer:
-        raise _later("the voxel skinning deformer", "the voxel-deformer slice")
-    if cfg.sky_model != "envlight":
-        raise _later(f"sky_model={cfg.sky_model!r}", "the sky-MLP slice")
+    if cfg.sky_model not in sky_mod.SKY_MODELS:
+        raise ValueError(f"unknown sky_model {cfg.sky_model!r}: one of "
+                         f"{sky_mod.SKY_MODELS}")
 
 
 def gaussian_classes(cfg: TrainerConfig):
@@ -223,7 +218,9 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
         bundles["SMPLNodes"] = smpl_node.gaussians(
             params["SMPLNodes"], statics["SMPLNodes"], masks["SMPLNodes"],
             cam_origin, step, frame, cfg.num_frames, in_test_set,
-            smpl_node.SMPLConfig(cfg.sh_degree, cfg.sh_degree_interval))
+            smpl_node.SMPLConfig(cfg.sh_degree, cfg.sh_degree_interval,
+                                 use_voxel_deformer=cfg.use_voxel_deformer),
+            vd_statics=statics["SMPLNodes"].get("vd_statics"))
     if cfg.use_deformable:
         bundles["DeformableNodes"] = deformable.node_gaussians(
             params["DeformableNodes"], statics["DeformableNodes"],
@@ -304,7 +301,14 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
                 merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg)
         outputs["Dynamic_opacity"] = dyn["alpha"]
 
-    rgb_sky = sky_mod.envlight_color(params["Sky"], batch["viewdirs"])
+    if cfg.sky_model == "envlight":
+        rgb_sky = sky_mod.envlight_color(params["Sky"], batch["viewdirs"])
+    elif cfg.sky_model == "mlp":
+        rgb_sky = sky_mod.sky_mlp_color(params["Sky"], batch["viewdirs"],
+                                        img_idx,
+                                        use_mean_embedding=in_test_set)
+    else:
+        rgb_sky = torch.zeros_like(rgb_gaussians)
     outputs["rgb_sky"] = rgb_sky
     original_rgb = rgb_gaussians + rgb_sky * (1.0 - opacity)
     outputs["original_rgb"] = original_rgb
@@ -368,8 +372,6 @@ def _regs(pairs) -> dict:
 def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
                    batch, step: int) -> Dict[str, torch.Tensor]:
     """The loss stack, each term weighted."""
-    if cfg.use_rigid and cfg.w_rigid_temporal > 0:
-        raise _later("rigid temporal smoothness", "the loss-variants slice")
     loss = {}
     pixels = batch["pixels"]
     if "egocar_masks" in batch:
@@ -441,16 +443,21 @@ def compute_losses(cfg: TrainerConfig, params, statics, masks, outputs,
     if cfg.background_reg:
         regs = _regs(cfg.background_reg)
         vel = regs.pop("velocity_reg", None)    # PVG backgrounds only
+        # this step's Background radii (the Background comes first)
+        bg_radii = outputs["info"]["radii"][:masks["Background"].shape[0]]
         for k, v in background.reg_loss(params["Background"],
-                                        masks["Background"], step,
-                                        regs).items():
+                                        masks["Background"], step, regs,
+                                        cur_radii=bg_radii).items():
             loss[f"Background_{k}"] = v
         if vel is not None and cfg.background_model == "pvg":
-            n_bg = masks["Background"].shape[0]
             loss["Background_velocity_reg"] = pvg.velocity_reg_loss(
-                params["Background"], masks["Background"],
-                outputs["info"]["radii"][:n_bg], vel.get("w", 0.001),
-                pvg.PVGConfig(cycle=cfg.pvg_cycle))
+                params["Background"], masks["Background"], bg_radii,
+                vel.get("w", 0.001), pvg.PVGConfig(cycle=cfg.pvg_cycle))
+    if cfg.use_rigid and cfg.w_rigid_temporal > 0:
+        # one weight for translation and rotation, as the JAX package has
+        loss["RigidNodes_temporal"] = rigid.temporal_smoothness_loss(
+            params["RigidNodes"], statics["RigidNodes"],
+            cfg.w_rigid_temporal, cfg.w_rigid_temporal)
     frame = int(batch["frame_idx"])
     if cfg.use_smpl and cfg.w_smpl_joint_smooth > 0:
         loss["SMPLNodes_joint_smooth"] = smpl_node.joint_smoothness_loss(

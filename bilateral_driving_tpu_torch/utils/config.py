@@ -1,10 +1,15 @@
 """Nested configuration trees with dotted overrides: port of
 bilateral_driving_tpu/utils/config.py without PyYAML.
 
-The JAX package loads YAML files; the port starts from a preset tree in
-`configs.py`, applies `key=value` overrides whose values are read as YAML
-scalars and flow sequences (PyYAML's own resolution rules for null, bool,
-int and float, written out here), and saves a run's tree as JSON.
+A tree comes from a preset of `configs.py` or from YAML files read by
+`load_yaml`, a reader of the block YAML the configuration files are
+written in: block mappings and sequences, flow sequences and flow
+mappings on one line, plain and quoted scalars and comments, with PyYAML's
+resolution rules for null, bool, int and float written out here; anything
+else (anchors, aliases, tags, block scalars, documents, multi-line flow
+collections) raises naming its line. `load_config` merges a method file,
+a dataset file and `key=value` overrides, as the JAX package does; a
+run's tree is saved as JSON.
 """
 from __future__ import annotations
 
@@ -206,12 +211,190 @@ def validate_keys(cfg: Dict, schema: Dict, path: str = "") -> List[str]:
     return unknown
 
 
+class YAMLError(ValueError):
+    pass
+
+
+def _strip_comment(text: str) -> str:
+    """The line without its comment: a # at its start or after a space,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or text[i - 1] in " [{,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i]
+    return text
+
+
+def _key_value(text: str):
+    """(key, rest) of a `key: value` or `key:` entry, or None."""
+    if text[:1] in "'\"":
+        end = text.find(text[0], 1)
+        if end > 0 and text[end + 1:end + 2] == ":" and (
+                text[end + 2:end + 3] in ("", " ")):
+            return text[:end + 1], text[end + 2:].strip()
+        return None
+    for i, ch in enumerate(text):
+        if ch == ":" and text[i + 1:i + 2] in ("", " "):
+            return text[:i].strip(), text[i + 1:].strip()
+        if ch in "[{":
+            return None
+    return None
+
+
+class _Lines:
+    """The content lines of a YAML text: (line number, indent, text)."""
+
+    def __init__(self, text: str, name: str):
+        self.name = name
+        self.lines = []
+        for n, raw in enumerate(text.splitlines(), 1):
+            body = _strip_comment(raw).rstrip()
+            if not body.strip():
+                continue
+            stripped = body.lstrip(" ")
+            if stripped.startswith("\t") or body.startswith("\t"):
+                self.fail(n, "a tab in the indentation")
+            if n == 1 and stripped.startswith("%"):
+                self.fail(n, "a directive")
+            if stripped in ("---", "...") or stripped.startswith(
+                    ("--- ", "... ")):
+                self.fail(n, "a document marker")
+            self.lines.append((n, len(body) - len(stripped), stripped))
+
+    def fail(self, n: int, what: str):
+        raise YAMLError(f"{self.name}:{n}: {what} is not supported")
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def _inline(lines: _Lines, n: int, text: str):
+    """A value written on its line: a one-line flow collection or a
+    scalar."""
+    if text[:1] in "&*!":
+        lines.fail(n, f"an anchor, alias or tag ({text.split()[0]!r})")
+    if text[:1] in "|>":
+        lines.fail(n, f"a block scalar ({text[:1]!r})")
+    if text[:1] in "[{":
+        try:
+            value, end = _flow(text, 0)
+        except ValueError:
+            lines.fail(n, f"a flow collection over several lines ({text!r})")
+        if text[end:].strip():
+            lines.fail(n, f"text after a flow collection ({text!r})")
+        return value
+    if text[:1] in "'\"" and not (len(text) >= 2 and text[-1] == text[0]):
+        lines.fail(n, f"a quoted scalar over several lines ({text!r})")
+    if text[:1] == "?":
+        lines.fail(n, "a complex key")
+    return _scalar(text)
+
+
+def _node(lines: _Lines, i: int, indent: int):
+    """The block node whose first line is lines.lines[i] at `indent`."""
+    if _is_item(lines.lines[i][2]):
+        return _sequence(lines, i, indent)
+    return _mapping(lines, i, indent)
+
+
+def _value_after(lines: _Lines, i: int, indent: int):
+    """The value of an entry whose own line ends at its `:` or `-`: the
+    deeper block after it (a sequence may also sit at the key's indent),
+    or null."""
+    L = lines.lines
+    if i < len(L) and (L[i][1] > indent or (
+            L[i][1] == indent and _is_item(L[i][2]))):
+        return _node(lines, i, L[i][1])
+    return None, i
+
+
+def _mapping(lines: _Lines, i: int, indent: int):
+    out = {}
+    L = lines.lines
+    while i < len(L) and L[i][1] == indent and not _is_item(L[i][2]):
+        n, _, text = L[i]
+        kv = _key_value(text)
+        if kv is None:
+            lines.fail(n, f"a line that is no `key: value` ({text!r})")
+        key = _inline(lines, n, kv[0])
+        if isinstance(key, (dict, list)):
+            lines.fail(n, "a collection as a key")
+        if kv[1]:
+            out[key] = _inline(lines, n, kv[1])
+            i += 1
+        else:
+            out[key], i = _value_after(lines, i + 1, indent)
+    if i < len(L) and L[i][1] > indent:
+        lines.fail(L[i][0], "indentation past its mapping's")
+    return out, i
+
+
+def _sequence(lines: _Lines, i: int, indent: int):
+    out = []
+    L = lines.lines
+    while i < len(L) and L[i][1] == indent and _is_item(L[i][2]):
+        n, _, text = L[i]
+        rest = text[1:].lstrip(" ")
+        if not rest:
+            value, i = _value_after(lines, i + 1, indent)
+        elif _is_item(rest) or _key_value(rest) is not None:
+            # a compact nested node: its first line continues the item
+            col = indent + len(text) - len(rest)
+            L[i] = (n, col, rest)
+            value, i = _node(lines, i, col)
+        else:
+            value, i = _inline(lines, n, rest), i + 1
+        out.append(value)
+    if i < len(L) and L[i][1] > indent:
+        lines.fail(L[i][0], "indentation past its sequence's")
+    return out, i
+
+
+def parse_yaml(text: str, name: str = "<yaml>"):
+    """The tree of a block-YAML text (see the module docstring); an empty
+    text gives None, as yaml.safe_load does."""
+    lines = _Lines(text, name)
+    if not lines.lines:
+        return None
+    n, indent, first = lines.lines[0]
+    if _is_item(first) or _key_value(first) is not None:
+        value, i = _node(lines, 0, indent)
+    else:
+        value, i = _inline(lines, n, first), 1
+    if i < len(lines.lines):
+        lines.fail(lines.lines[i][0], "text after the document's node")
+    return value
+
+
+def load_yaml(path: str) -> ConfigDict:
+    with open(path) as f:
+        return wrap(parse_yaml(f.read(), path) or {})
+
+
+def _read_tree(path: str) -> ConfigDict:
+    """A saved run's config.json, or a YAML file."""
+    if path.endswith(".json"):
+        with open(path) as f:
+            return wrap(json.load(f))
+    return load_yaml(path)
+
+
 def save_config(cfg: Dict, path: str):
     with open(path, "w") as f:
         json.dump(cfg, f, indent=2)
 
 
-def load_config(path: str, overrides: List[str] = ()) -> ConfigDict:
-    """A saved run's tree (save_config) with overrides applied."""
-    with open(path) as f:
-        return apply_dotlist(wrap(json.load(f)), list(overrides))
+def load_config(config_file: str, dataset_file: str | None = None,
+                overrides: List[str] = ()) -> ConfigDict:
+    """The method file (a YAML or a run's config.json), merged with the
+    dataset YAML where one is given, then the `key=value` overrides."""
+    cfg = _read_tree(config_file)
+    if dataset_file:
+        cfg = merge(cfg, load_yaml(dataset_file))
+    return apply_dotlist(cfg, list(overrides))

@@ -8,12 +8,14 @@ train.trainer.forward), takes flagship training steps on it
 pedestrians and the single bilateral grid) and omnire (the affine
 appearance codes with camera refinement), takes a step of each other
 appearance model (the neural, multi-scale neural and CP-4D grids, the
-multi-scale grids with the cycle loss) and of the PVG and DeformableGS
-backgrounds, trains, resumes and evaluates a scene from disk through the
-port's CLI (tools.train, tools.eval) with every preset, renders the
-trained run's splits and a novel trajectory (tools.render), and holds
-every hand-written kernel of those paths against its plain PyTorch
-version.
+multi-scale grids with the cycle loss), of the PVG and DeformableGS
+backgrounds and of the options no YAML turns on (the MLP sky, no sky, the
+voxel skinning deformer, the rigid and Background regularisers), computes
+LPIPS, trains, resumes and evaluates a scene from disk through the port's
+CLI (tools.train, tools.eval) with every preset and from YAML files,
+renders the trained run's splits and a novel trajectory (tools.render),
+and holds every hand-written kernel of those paths against its plain
+PyTorch version.
 Phases, each printed on its own line with its result and elapsed seconds:
 
   env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, PIL, the card
@@ -139,6 +141,28 @@ Phases, each printed on its own line with its result and elapsed seconds:
             all-plain step (every leaf, PVG's taus, life spans and
             velocities and the network's among them, none zero), the step
             timed 3 times, its launches, a test view, the peak memory
+  option_variants   the options of the JAX trainer that no YAML turns
+            on, each beside omnire_bilateral on the omnire scene at full
+            width: the MLP sky, no sky, the voxel skinning deformer (eight
+            (24, 16, 64, 64) voxels, their set-up timed and rebuilt
+            bit-equal, the correction moved off zero), rigid temporal
+            smoothness with the Background's flatten, sparse_reg and
+            max_s_square_reg terms (the cars' quaternion tracks moved off
+            their one heading): one step's gradients against the
+            all-plain step (the option's leaves among them, none zero),
+            the step timed 3 times, its launches (the splat none without
+            an EnvLight texture), a test view (the MLP sky at the mean
+            code), the peak memory
+  lpips     LPIPS (eval/lpips.py) with weights drawn from a seed and
+            written in tools/export_lpips_weights.py's layout: two sky
+            variants' 533 x 300 test views and their target on the card
+            against the plain path on the CPU in float64, ms per image
+            pair, eval/metrics.lpips through BILATERAL_LPIPS_WEIGHTS
+  cli_yaml  tools.train --config_file (omnire_bilateral with every option
+            above, written as YAML) --dataset_file (a proto_scene rig)
+            smpl.model_path=synthetic for 50 steps with PIL blocked, a
+            resume from checkpoint_26 bit-equal at step 50 beside
+            tools.eval with the lpips weights (a finite lpips)
   cli_smpl  tools.train --config omnire_bilateral on proto_scene with
             smpl.model_path=synthetic for CLI_SMPL_STEPS steps (its
             pedestrian in SMPLNodes), then tools.eval: test PSNR and the
@@ -163,8 +187,8 @@ Phases, each printed on its own line with its result and elapsed seconds:
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral, omnire, background_variants, render_cli, cli_synthetic
-and cli_downscale paths), the card's name and power limit as
+omnire_bilateral, omnire, background_variants, option_variants, cli_yaml,
+render_cli, cli_synthetic and cli_downscale paths), the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
 a run without CUDA or outside a checkout of the repository.
@@ -316,6 +340,31 @@ DOWNSCALE_HW = (32, 48)
 NO_PIL = ("import runpy, sys; sys.modules['PIL'] = None; "
           "sys.argv = sys.argv[1:]; runpy.run_module(sys.argv[0], "
           "run_name='__main__', alter_sys=True)")
+# the options of the JAX trainer that no YAML turns on, each beside
+# omnire_bilateral on the omnire scene at full width: the overrides, the
+# gradient leaves they add (each must have a gradient) and the splat's
+# launches per step (0 without an EnvLight texture)
+OPTION_VARIANTS = (
+    ("sky_mlp", ["trainer.sky_model=mlp"], ("Sky/",), 0),
+    ("sky_none", ["trainer.sky_model=none"], (), 0),
+    ("voxel_deformer", ["trainer.use_voxel_deformer=true"],
+     ("SMPLNodes/voxel_w_correction",), 1),
+    ("regularisers", ["losses.rigid_temporal=0.01",
+                      "background_reg.flatten={w: 0.01}",
+                      "background_reg.sparse_reg={w: 0.01}",
+                      "background_reg.max_s_square_reg={w: 0.01}"],
+     ("RigidNodes/instances_quats", "RigidNodes/instances_trans"), 1))
+OPTION_TIMED_STEPS = 3
+OPTION_LOSSES = ("Background_flatten", "Background_sparse_reg",
+                 "Background_max_s_square", "RigidNodes_temporal")
+# LPIPS of two 533 x 300 renders on the card (float32, TF32 off) against
+# the plain path on the CPU in float64, relative; LPIPS_REPEATS timed pairs
+LPIPS_RTOL, LPIPS_REPEATS = 1e-4, 5
+# the CLI from YAML files: a method file (omnire_bilateral with every
+# option above) and a rig file for proto_scene, CLI_YAML_STEPS steps, a
+# resume from checkpoint_CLI_YAML_RESUME bit-equal at the last step, eval
+# with LPIPS weights
+CLI_YAML_STEPS, CLI_YAML_RESUME = 50, 26
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
 # The least work each kernel must do on its inputs, for its bound.
@@ -1754,128 +1803,174 @@ def smpl_preset(prefix: str, preset: str, args, dev, scene_rng=None):
             batches)
 
 
-def appearance_variants(args, dev, scene_rng, batches):
-    """The appearance_variants phase: on the omnire scene, for each of
-    VARIANTS one training step through the kernels with every gradient
-    leaf against the all-plain step, the step's median over
-    VARIANT_TIMED_STEPS runs from a copy of the state, a test-view frame
-    with neighbour-averaged appearance, launch counters from 0 around the
-    step and the frame, and every parameter finite after the step."""
+def variant_step(name: str, cfg, state, statics, batch, data, neighbor_map,
+                 seed: int, splats: int = 1, timed: int = 3):
+    """One training step of a variant's state on the omnire scene: the
+    intersection capacity of its training view and test image 60; the
+    step's gradients through the kernels against the all-plain step at one
+    temporal-smoothing offset (PVG draws it per step), every leaf within
+    GRADS_RTOL and no kernel launched by the plain step; the step's median
+    over `timed` runs from a copy of the state; its launches (`splats`
+    splats, one of each other path kernel, segment_sum_rows none); every
+    parameter finite after it; test image 60 rendered. Returns (cfg with
+    the capacity, the state after the step, a dict of what was seen: rels
+    by leaf, zero leaves, step metrics, ms, launches, the test frame)."""
     import torch
 
-    from bilateral_driving_tpu_torch import configs
-    from bilateral_driving_tpu_torch.data import synthetic
     from bilateral_driving_tpu_torch.eval import render_loop
-    from bilateral_driving_tpu_torch.tools import common
     from bilateral_driving_tpu_torch.train import trainer
-    from bilateral_driving_tpu_torch.utils.config import (apply_dotlist,
-                                                          wrap)
 
-    t0 = time.perf_counter()
-    scene = scene_rng[0]
-    data = synthetic.SyntheticData(scene)
-    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
-    batch = batches[0]
+    dev = batch["pixels"].device
     wrappers = kernel_wrappers()
-    out = {}
-    for name, preset, over in VARIANTS:
-        g = torch.Generator().manual_seed(args.seed)
-        g.set_state(scene_rng[1])
-        cfg = common.trainer_config_from(
-            apply_dotlist(wrap(configs.PRESETS[preset]), over),
-            data.num_images, NUM_FRAMES, 1.0)
-        check(cfg.affine_model == name.removesuffix("_inverse"),
-              f"{preset}: affine_model {cfg.affine_model}")
-        state, statics = synthetic.random_state(
-            scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
-            device=dev, smpl_verts=SMPL_VERTS)
-        views = [(batch, False), (data.get_batch(BILATERAL_VIEWS[1]), True)]
-        cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
-            statics, state.aux), views, WIDTH, HEIGHT, scene.K)
-        cfg = dataclasses.replace(cfg, isect_capacity=cap)
-        tstate = trainer.init_state(
-            cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
-            generator=torch.Generator(device=dev).manual_seed(args.seed))
-        for f in wrappers.values():
-            f.launches = 0
-        _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate,
-                                                   batch)
-        grad_launches = counts(wrappers)
-        _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch)
-        torch.cuda.synchronize()
-        check(counts(wrappers) == grad_launches,
-              f"{name}: a kernel launched in the plain-version step")
-        g_k["means2d"], g_p["means2d"] = gd_k, gd_p
-        rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
-        worst = max(rels, key=rels.get)
-        zero = sorted(k for k in g_p if not bool(g_p[k].any()))
-        check(rels[worst] <= GRADS_RTOL,
-              f"{name}: gradient of {worst} differs from the plain step by "
-              f"{rels[worst]}")
-        check(not any(k.startswith(("SMPLNodes/", "Affine/")) for k in zero),
-              f"{name}: an SMPLNodes or Affine leaf has no gradient: {zero}")
-        affine_rel = {k: float(f"{v:.3g}") for k, v in rels.items()
-                      if k.startswith("Affine/")}
-        del g_k, g_p, gd_k, gd_p
+    views = [(batch, False), (data.get_batch(BILATERAL_VIEWS[1]), True)]
+    cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
+        statics, state.aux), views, WIDTH, HEIGHT, data.scene.K)
+    cfg = dataclasses.replace(cfg, isect_capacity=cap)
+    tstate = trainer.init_state(
+        cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    offset = trainer.temporal_offset(cfg, tstate.generator)
+    for f in wrappers.values():
+        f.launches = 0
+    _, loss_k, _, g_k, gd_k = trainer.compute_grads(
+        cfg, statics, tstate, batch, time_offset=offset)
+    grad_launches = counts(wrappers)
+    _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch,
+                                          time_offset=offset)
+    torch.cuda.synchronize()
+    check(counts(wrappers) == grad_launches,
+          f"{name}: a kernel launched in the plain-version step")
+    path_launches = lambda got: (
+        got["splat_grad"] == splats and got["scan"] >= 1
+        and got["segment_sum_rows"] == 0
+        and all(got[k] == 1 for k in TRAIN_PATH
+                if k not in ("scan", "splat_grad")))
+    check(path_launches(grad_launches),
+          f"{name}: the gradient step's launches {grad_launches}")
+    g_k["means2d"], g_p["means2d"] = gd_k, gd_p
+    rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
+    worst = max(rels, key=rels.get)
+    zero = sorted(k for k in g_p if not bool(g_p[k].any()))
+    check(rels[worst] <= GRADS_RTOL,
+          f"{name}: gradient of {worst} differs from the plain step by "
+          f"{rels[worst]}")
+    del g_k, g_p, gd_k, gd_p
 
-        saved = snapshot(tstate)
-        for f in wrappers.values():
-            f.launches = 0
-        ms = []
-        for i in range(VARIANT_TIMED_STEPS):
-            st = restore(saved, tstate.generator) if i else tstate
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            st, m = trainer.train_step(cfg, statics, st, batch)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t1))
-            if i == 0:
-                step_launches = counts(wrappers)
-                vals = {k: float(v) for k, v in m.items()}
-                tstate = st
-            del st
-        check(all(step_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
-              and step_launches["scan"] >= 1
-              and step_launches["segment_sum_rows"] == 0,
-              f"{name}: the step's launches {step_launches}")
-        check(all(math.isfinite(v) for v in vals.values())
-              and vals["nonfinite_params"] == 0
-              and vals["isect_overflow"] == 0,
-              f"{name}: step metrics {vals}")
-        check(all(bool(torch.isfinite(p).all())
-                  for _, p in trainer.named_leaves(tstate.params)),
-              f"{name}: a parameter is not finite")
-        del saved
-
-        for f in wrappers.values():
-            f.launches = 0
+    saved = snapshot(tstate)
+    for f in wrappers.values():
+        f.launches = 0
+    ms = []
+    for i in range(timed):
+        st = restore(saved, tstate.generator) if i else tstate
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = render_loop.render_images(cfg, tstate, statics, data,
-                                        [BILATERAL_VIEWS[1]], neighbor_map)
+        st, m = trainer.train_step(cfg, statics, st, batch)
         torch.cuda.synchronize()
-        frame_ms = 1e3 * (time.perf_counter() - t1)
-        frame_launches = counts(wrappers)
-        rgb = res["rgbs"][0]
-        check(all(frame_launches[k] == 1 for k in ("expand",
-                                                   "rasterize_fwd"))
-              and frame_launches["scan"] >= 1
-              and bool(torch.isfinite(rgb).all())
-              and not bool(res["overflow"][0]),
-              f"{name}: test frame {frame_launches}")
-        out[name] = {
-            "preset": preset, "overrides": over, "isect_capacity": cap,
-            "grads_worst_leaf": worst, "grads_worst_rel_norm": rels[worst],
-            "affine_rel_norm": affine_rel, "zero_leaves": zero,
+        ms.append(1e3 * (time.perf_counter() - t1))
+        if i == 0:
+            step_launches = counts(wrappers)
+            vals = {k: float(v) for k, v in m.items()}
+            tstate = st
+        del st
+    check(path_launches(step_launches),
+          f"{name}: the step's launches {step_launches}")
+    check(all(math.isfinite(v) for v in vals.values())
+          and vals["nonfinite_params"] == 0
+          and vals["isect_overflow"] == 0,
+          f"{name}: step metrics {vals}")
+    check(all(bool(torch.isfinite(p).all())
+              for _, p in trainer.named_leaves(tstate.params)),
+          f"{name}: a parameter is not finite")
+    del saved
+
+    for f in wrappers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = render_loop.render_images(cfg, tstate, statics, data,
+                                    [BILATERAL_VIEWS[1]], neighbor_map)
+    torch.cuda.synchronize()
+    frame_ms = 1e3 * (time.perf_counter() - t1)
+    frame_launches = counts(wrappers)
+    rgb = res["rgbs"][0]
+    check(all(frame_launches[k] == 1 for k in ("expand", "rasterize_fwd"))
+          and frame_launches["scan"] >= 1
+          and bool(torch.isfinite(rgb).all())
+          and not bool(res["overflow"][0]),
+          f"{name}: test frame {frame_launches}")
+    return cfg, tstate, {
+        "rels": rels, "worst": worst, "zero": zero, "loss_k": loss_k,
+        "offset": offset, "vals": vals, "ms": ms,
+        "step_launches": step_launches, "frame_ms": frame_ms,
+        "frame_launches": frame_launches, "res": res,
+        "summary": {
+            "isect_capacity": cap, "grads_worst_leaf": worst,
+            "grads_worst_rel_norm": rels[worst], "zero_leaves": zero,
             "loss": round(vals["loss"], 5),
-            "loss_affine": vals["loss/affine"],
+            "losses": {k[5:]: round(v, 6) for k, v in vals.items()
+                       if k.startswith("loss/")},
             "step_ms": [round(x, 3) for x in ms],
             "step_median_ms": round(sorted(ms)[len(ms) // 2], 3),
             "step_launches": step_launches,
             "test_frame_ms": round(frame_ms, 3),
             "test_frame_launches": frame_launches,
-            "test_frame_rgb_mean": round(float(rgb.mean()), 4)}
-        del tstate, state, statics
+            "test_frame_rgb_mean": round(float(rgb.mean()), 4)}}
+
+
+def variant_state(preset: str, over, args, dev, scene_rng, num_images: int,
+                  smpl_verts: int = SMPL_VERTS):
+    """A preset's (with overrides) TrainerConfig and random_state on the
+    omnire scene, its draws starting where the omnire phases' did."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.tools import common
+    from bilateral_driving_tpu_torch.utils.config import (apply_dotlist,
+                                                          wrap)
+
+    g = torch.Generator().manual_seed(args.seed)
+    g.set_state(scene_rng[1])
+    cfg = common.trainer_config_from(
+        apply_dotlist(wrap(configs.PRESETS[preset]), over), num_images,
+        NUM_FRAMES, 1.0)
+    state, statics = synthetic.random_state(
+        scene_rng[0], cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
+        device=dev, smpl_verts=smpl_verts)
+    return cfg, state, statics
+
+
+def appearance_variants(args, dev, scene_rng, batches):
+    """The appearance_variants phase: on the omnire scene, for each of
+    VARIANTS its preset's state and variant_step (one step's gradients
+    against the all-plain step, the step timed VARIANT_TIMED_STEPS times,
+    its launches, finite parameters, a test view with neighbour-averaged
+    appearance); no SMPLNodes or Affine leaf without a gradient."""
+    from bilateral_driving_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    data = synthetic.SyntheticData(scene_rng[0])
+    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
+    out = {}
+    for name, preset, over in VARIANTS:
+        cfg, state, statics = variant_state(preset, over, args, dev,
+                                            scene_rng, data.num_images)
+        check(cfg.affine_model == name.removesuffix("_inverse"),
+              f"{preset}: affine_model {cfg.affine_model}")
+        cfg, tstate, seen = variant_step(
+            name, cfg, state, statics, batches[0], data, neighbor_map,
+            args.seed, timed=VARIANT_TIMED_STEPS)
+        check(not any(k.startswith(("SMPLNodes/", "Affine/"))
+                      for k in seen["zero"]),
+              f"{name}: an SMPLNodes or Affine leaf has no gradient: "
+              f"{seen['zero']}")
+        out[name] = {
+            "preset": preset, "overrides": over, **seen["summary"],
+            "affine_rel_norm": {k: float(f"{v:.3g}")
+                                for k, v in seen["rels"].items()
+                                if k.startswith("Affine/")},
+            "loss_affine": seen["vals"]["loss/affine"]}
+        del tstate, state, statics, seen
     phase("appearance_variants", t0, variants=out, tolerance=GRADS_RTOL,
           nvidia_smi=nvidia_smi())
 
@@ -1886,144 +1981,352 @@ def background_variants(args, dev, scene_rng, batches):
     flagship's 2,097,152 background slots with 1,000,000 live, EnvLight
     R=1024, the affine codes over 240 images, camera refinement; PVG's
     taus, life spans and velocities and the DeformableGS network moved off
-    their init): one training step through the kernels with every
-    gradient leaf against the all-plain step at one temporal-smoothing
-    offset, the step's median over BACKGROUND_TIMED_STEPS runs from a copy
-    of the state, its launches (one of each training kernel), every
-    parameter finite after it, a test view, and the peak device memory
-    from the state's build to the test view. Returns each kernel's
-    launches per background."""
+    their init) and variant_step, every leaf with a gradient, and the peak
+    device memory from the state's build to the test view. Returns each
+    kernel's launches per background."""
     import torch
 
-    from bilateral_driving_tpu_torch import configs
     from bilateral_driving_tpu_torch.data import synthetic
-    from bilateral_driving_tpu_torch.eval import render_loop
-    from bilateral_driving_tpu_torch.tools import common
-    from bilateral_driving_tpu_torch.train import trainer
-    from bilateral_driving_tpu_torch.utils.config import wrap
 
     t0 = time.perf_counter()
-    scene = scene_rng[0]
-    data = synthetic.SyntheticData(scene)
+    data = synthetic.SyntheticData(scene_rng[0])
     neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
-    batch = batches[0]
-    wrappers = kernel_wrappers()
     out, launched = {}, {}
     for name, preset in BACKGROUNDS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        g = torch.Generator().manual_seed(args.seed)
-        g.set_state(scene_rng[1])
-        cfg = common.trainer_config_from(wrap(configs.PRESETS[preset]),
-                                         data.num_images, NUM_FRAMES, 1.0)
+        cfg, state, statics = variant_state(preset, [], args, dev,
+                                            scene_rng, data.num_images)
         check(cfg.background_model == name and not cfg.use_rigid
               and not cfg.use_deformable and cfg.use_camera_opt,
               f"{preset}: {cfg.background_model}")
-        state, statics = synthetic.random_state(
-            scene, cfg, g, configs.FLAGSHIP_BG_CAPACITY, TRAIN_STEP0,
-            device=dev)
-        views = [(batch, False), (data.get_batch(BILATERAL_VIEWS[1]), True)]
-        cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
-            statics, state.aux), views, WIDTH, HEIGHT, scene.K)
-        cfg = dataclasses.replace(cfg, isect_capacity=cap)
-        tstate = trainer.init_state(
-            cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
-            generator=torch.Generator(device=dev).manual_seed(args.seed))
-        # both steps at one smoothing offset (PVG draws it per step)
-        offset = trainer.temporal_offset(cfg, tstate.generator)
-        for f in wrappers.values():
-            f.launches = 0
-        _, _, _, g_k, gd_k = trainer.compute_grads(cfg, statics, tstate,
-                                                   batch, time_offset=offset)
-        grad_launches = counts(wrappers)
-        _, _, _, g_p, gd_p = plain_step_grads(cfg, statics, tstate, batch,
-                                              time_offset=offset)
-        torch.cuda.synchronize()
-        check(counts(wrappers) == grad_launches,
-              f"{name}: a kernel launched in the plain-version step")
-        check(all(grad_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
-              and grad_launches["scan"] >= 1,
-              f"{name}: the gradient step's launches {grad_launches}")
-        g_k["means2d"], g_p["means2d"] = gd_k, gd_p
-        rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
-        worst = max(rels, key=rels.get)
-        zero = sorted(k for k in g_p if not bool(g_p[k].any()))
-        check(rels[worst] <= GRADS_RTOL,
-              f"{name}: gradient of {worst} differs from the plain step by "
-              f"{rels[worst]}")
-        check(not zero, f"{name}: leaves without gradient: {zero}")
-        background_rel = {k: float(f"{v:.3g}") for k, v in rels.items()
-                          if k.startswith("Background/")
-                          and "trunk" not in k}
-        del g_k, g_p, gd_k, gd_p
-
-        saved = snapshot(tstate)
-        for f in wrappers.values():
-            f.launches = 0
-        ms = []
-        for i in range(BACKGROUND_TIMED_STEPS):
-            st = restore(saved, tstate.generator) if i else tstate
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            st, m = trainer.train_step(cfg, statics, st, batch)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t1))
-            if i == 0:
-                step_launches = counts(wrappers)
-                vals = {k: float(v) for k, v in m.items()}
-                tstate = st
-            del st
-        check(all(step_launches[k] == 1 for k in TRAIN_PATH if k != "scan")
-              and step_launches["scan"] >= 1
-              and step_launches["segment_sum_rows"] == 0,
-              f"{name}: the step's launches {step_launches}")
-        check(all(math.isfinite(v) for v in vals.values())
-              and vals["nonfinite_params"] == 0
-              and vals["isect_overflow"] == 0,
-              f"{name}: step metrics {vals}")
-        check(all(bool(torch.isfinite(p).all())
-                  for _, p in trainer.named_leaves(tstate.params)),
-              f"{name}: a parameter is not finite")
-        del saved
-
-        for f in wrappers.values():
-            f.launches = 0
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = render_loop.render_images(cfg, tstate, statics, data,
-                                        [BILATERAL_VIEWS[1]], neighbor_map)
-        torch.cuda.synchronize()
-        frame_ms = 1e3 * (time.perf_counter() - t1)
-        frame_launches = counts(wrappers)
-        rgb = res["rgbs"][0]
-        check(all(frame_launches[k] == 1 for k in ("expand",
-                                                   "rasterize_fwd"))
-              and frame_launches["scan"] >= 1
-              and bool(torch.isfinite(rgb).all())
-              and not bool(res["overflow"][0]),
-              f"{name}: test frame {frame_launches}")
-        launched[name] = step_launches
+        cfg, tstate, seen = variant_step(
+            name, cfg, state, statics, batches[0], data, neighbor_map,
+            args.seed, timed=BACKGROUND_TIMED_STEPS)
+        check(not seen["zero"], f"{name}: leaves without gradient: "
+              f"{seen['zero']}")
+        launched[name] = seen["step_launches"]
         out[name] = {
-            "preset": preset, "isect_capacity": cap,
+            "preset": preset, **seen["summary"],
             "bg_slots": int(state.masks["Background"].shape[0]),
             "bg_live": int(state.masks["Background"].sum()),
             "envlight_resolution": cfg.envlight_resolution,
-            "time_offset": float(offset),
-            "grads_worst_leaf": worst, "grads_worst_rel_norm": rels[worst],
-            "background_rel_norm": background_rel, "zero_leaves": zero,
-            "loss": round(vals["loss"], 5),
-            "losses": {k[5:]: round(v, 6) for k, v in vals.items()
-                       if k.startswith("loss/")},
-            "step_ms": [round(x, 3) for x in ms],
-            "step_median_ms": round(sorted(ms)[len(ms) // 2], 3),
-            "step_launches": step_launches,
-            "test_frame_ms": round(frame_ms, 3),
-            "test_frame_launches": frame_launches,
-            "test_frame_rgb_mean": round(float(rgb.mean()), 4),
+            "time_offset": float(seen["offset"]),
+            "background_rel_norm": {
+                k: float(f"{v:.3g}") for k, v in seen["rels"].items()
+                if k.startswith("Background/") and "trunk" not in k},
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
-        del tstate, state, statics, res
+        del tstate, state, statics, seen
     phase("background_variants", t0, backgrounds=out, tolerance=GRADS_RTOL,
           nvidia_smi=nvidia_smi())
+    return launched
+
+
+def option_variants(args, dev, scene_rng, batches):
+    """The option_variants phase: on the omnire scene, for each of
+    OPTION_VARIANTS omnire_bilateral's state at full width (2,097,152
+    background slots, 1,000,000 live, 8 SMPL walkers of 6,890 vertices,
+    the single grids) with the option on, and variant_step: the option's
+    own leaves among the compared gradients, each with a gradient (the
+    voxel correction moved off zero by random_state, the cars' quaternion
+    tracks off their one heading here), its splats (none without an
+    EnvLight texture), a test view (the MLP sky at the mean code, no sky
+    at zero), the peak device memory; for the voxel deformer the seconds
+    of its set-up (eight (24, 16, 64, 64) voxels, built again and
+    bit-equal to the state's). Returns each kernel's launches per variant
+    and the two sky variants' test-view renders with its target."""
+    import torch
+
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.scene import voxel_deformer as vd
+
+    t0 = time.perf_counter()
+    data = synthetic.SyntheticData(scene_rng[0])
+    neighbor_map = data.neighbor_train_indices(TEST_STRIDE)
+    out, launched, renders = {}, {}, {}
+    for name, over, new_leaves, splats in OPTION_VARIANTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        cfg, state, statics = variant_state(
+            "omnire_bilateral", over, args, dev, scene_rng, data.num_images)
+        torch.cuda.synchronize()
+        state_s = time.perf_counter() - t1
+        check(cfg.use_smpl and cfg.affine_model == "bilateral",
+              f"{name}: {cfg.affine_model}")
+        voxel = {}
+        if cfg.use_voxel_deformer:
+            tmpl = statics["SMPLNodes"]["template"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again, _ = vd.init_voxel_deformer(tmpl.verts_canonical,
+                                              tmpl.lbs_weights)
+            torch.cuda.synchronize()
+            base = statics["SMPLNodes"]["vd_statics"].lbs_voxel_base
+            check(torch.equal(again.lbs_voxel_base, base),
+                  f"{name}: the voxel set-up is not deterministic")
+            corr = state.params["SMPLNodes"]["voxel_w_correction"]
+            voxel = {"setup_s": round(time.perf_counter() - t1, 3),
+                     "voxels": list(base.shape),
+                     "correction_abs_mean": float(corr.abs().mean())}
+            check(tuple(base.shape) == (SMPL_WALKERS, 24, 16, 64, 64)
+                  and bool(corr.any()), f"{name}: voxels {voxel}")
+            del again
+        if cfg.w_rigid_temporal > 0:
+            # the scene's cars keep one heading: their quaternion tracks
+            # (a new tensor: the scene's own is shared) moved off it, so
+            # the smoothness term has a quaternion gradient in every frame
+            rigid = state.params["RigidNodes"]
+            q = rigid["instances_quats"].detach()
+            rigid["instances_quats"] = q + 0.01 * torch.randn(
+                q.shape, generator=torch.Generator().manual_seed(
+                    args.seed + 5)).to(dev)
+        check(("Sky" in state.params) == (cfg.sky_model != "none"),
+              f"{name}: Sky parameters")
+        cfg, tstate, seen = variant_step(
+            name, cfg, state, statics, batches[0], data, neighbor_map,
+            args.seed, splats=splats, timed=OPTION_TIMED_STEPS)
+        zero = seen["zero"]
+        new = sorted(k for k in seen["rels"] if k.startswith(new_leaves))
+        check(all(any(k.startswith(p) for k in new) for p in new_leaves)
+              and not any(k in zero for k in new),
+              f"{name}: its leaves {new} or their gradients missing: "
+              f"{zero}")
+        check(not any(k.startswith(("SMPLNodes/", "Affine/"))
+                      for k in zero),
+              f"{name}: an SMPLNodes or Affine leaf has no gradient: {zero}")
+        loss_k = seen["loss_k"]
+        if name == "regularisers":
+            check(all(float(loss_k[k]) > 0 for k in OPTION_LOSSES)
+                  and "Background_sharp_shape_reg" in loss_k,
+                  f"{name}: losses {sorted(loss_k)}")
+        res = seen["res"]
+        sky_rgb = res["sky_rgbs"][0]
+        if name == "sky_none":
+            check(not bool(sky_rgb.any()), f"{name}: a sky colour")
+        if name == "sky_mlp":
+            # the test view's sky: the MLP at the mean appearance code
+            check(bool(((sky_rgb > 0) & (sky_rgb < 1)).all()),
+                  f"{name}: sky colours outside (0, 1)")
+        if name.startswith("sky_"):
+            renders[name] = res["rgbs"][0]
+            renders["target"] = res["gt_rgbs"][0]
+        launched[name] = seen["step_launches"]
+        out[name] = {
+            "overrides": over, **seen["summary"],
+            "state_s": round(state_s, 3),
+            **({"voxel": voxel} if voxel else {}),
+            "new_leaves_rel_norm": {k: float(f"{seen['rels'][k]:.3g}")
+                                    for k in new},
+            "test_frame_sky_mean": round(float(sky_rgb.mean()), 4),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+        del tstate, state, statics, seen, res
+    phase("option_variants", t0, variants=out, tolerance=GRADS_RTOL,
+          nvidia_smi=nvidia_smi())
+    return launched, renders
+
+
+def lpips_phase(dev, renders) -> str:
+    """The lpips phase: weights drawn from a seeded generator
+    (eval/lpips.init_random) written in tools/export_lpips_weights.py's
+    layout to bilateral_driving_tpu_torch/_build/lpips_vgg.npz (git
+    ignored); LPIPS of two 533 x 300 renders (option_variants' test view
+    with the MLP sky and with none) and of each against its target on the
+    card in float32 (TF32 off), against the plain path on the CPU in
+    float64 (relative, within LPIPS_RTOL); ms per image pair over
+    LPIPS_REPEATS; eval/metrics.lpips through BILATERAL_LPIPS_WEIGHTS.
+    Returns the weights' path."""
+    import numpy as np
+    import torch
+
+    from bilateral_driving_tpu_torch.eval import lpips, metrics
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    path = os.path.join(ROOT, "bilateral_driving_tpu_torch", "_build",
+                        "lpips_vgg.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    lpips.save_weights_npz(lpips.init_random(
+        torch.Generator().manual_seed(7)), path)
+    on_card = lpips.load_weights_npz(path, dev)
+    on_cpu = lpips.load_weights_npz(path, "cpu", torch.float64)
+    pairs = {"mlp_vs_none": (renders["sky_mlp"], renders["sky_none"]),
+             "mlp_vs_target": (renders["sky_mlp"], renders["target"]),
+             "none_vs_target": (renders["sky_none"], renders["target"])}
+    vals, rels = {}, {}
+    for k, (a, b) in pairs.items():
+        check(tuple(a.shape) == (HEIGHT, WIDTH, 3), f"lpips input {a.shape}")
+        with torch.no_grad():
+            got = float(lpips.lpips(on_card, a.float(), b.float()))
+            want = float(lpips.lpips(on_cpu, a.double().cpu(),
+                                     b.double().cpu()))
+        rels[k] = abs(got - want) / max(abs(want), 1e-30)
+        vals[k] = {"card_f32": got, "cpu_f64": want}
+        check(math.isfinite(got) and got > 0 and rels[k] <= LPIPS_RTOL,
+              f"lpips {k}: card {got}, CPU float64 {want}")
+    a, b = pairs["mlp_vs_target"]
+    ms = []
+    with torch.no_grad():
+        for _ in range(LPIPS_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lpips.lpips(on_card, a.float(), b.float())
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+    os.environ["BILATERAL_LPIPS_WEIGHTS"] = path
+    try:
+        via = metrics.lpips(a.cpu().numpy(), b.cpu().numpy(), device=dev)
+    finally:
+        del os.environ["BILATERAL_LPIPS_WEIGHTS"]
+    check(via is not None and abs(via - vals["mlp_vs_target"]["card_f32"])
+          <= 1e-6 * vals["mlp_vs_target"]["card_f32"],
+          f"metrics.lpips {via} against {vals['mlp_vs_target']}")
+    check((torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32) == tf32,
+          "lpips left the TF32 settings changed")
+    phase("lpips", t0, image_hw=[HEIGHT, WIDTH], values=vals,
+          rel_to_cpu_f64=rels, tolerance=LPIPS_RTOL,
+          ms_per_pair=[round(x, 3) for x in ms],
+          ms_per_pair_median=round(sorted(ms)[len(ms) // 2], 3),
+          metrics_lpips=via, weights=os.path.relpath(path, ROOT),
+          weights_bytes=os.path.getsize(path), nvidia_smi=nvidia_smi())
+    return path
+
+
+def yaml_text(tree, indent: int = 0) -> str:
+    """A config tree as block YAML that utils/config.load_yaml and PyYAML
+    read back alike: mappings as blocks, lists as flow sequences, floats
+    always with a point (YAML 1.1 reads 1e-05 as a string)."""
+    def scalar(v):
+        if v is None:
+            return "null"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, float):
+            r = repr(v)
+            if "e" in r and "." not in r.split("e")[0]:
+                r = r.replace("e", ".0e")
+            return r
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(scalar(x) for x in v) + "]"
+        return str(v)
+
+    lines = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            lines.append(" " * indent + f"{k}:")
+            lines.append(yaml_text(v, indent + 2))
+        else:
+            lines.append(" " * indent + f"{k}: {scalar(v)}")
+    return "\n".join(x for x in lines if x)
+
+
+def cli_yaml(dev, weights: str):
+    """The cli_yaml phase: a method YAML (omnire_bilateral's tree with the
+    MLP sky, the voxel deformer, rigid temporal smoothness and the
+    flatten, sparse_reg and max_s_square_reg terms) and a rig YAML for
+    tests/fixtures/proto_scene, written by yaml_text and read back by
+    utils/config.load_yaml; tools.train --config_file --dataset_file
+    smpl.model_path=synthetic for CLI_YAML_STEPS steps with PIL blocked;
+    then, side by side with BILATERAL_LPIPS_WEIGHTS naming the lpips
+    phase's weights, a resume from checkpoint_CLI_YAML_RESUME (bit-equal
+    to the uninterrupted run's final checkpoint) and tools.eval of the
+    uninterrupted run (a finite lpips in metrics_test.json).
+    The run directories go to work_dirs/chip_smoke_cli_yaml and are
+    removed after. Returns the train run's launches."""
+    import torch
+
+    from bilateral_driving_tpu_torch import configs
+    from bilateral_driving_tpu_torch.utils import config
+
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_yaml")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    method = config.apply_dotlist(
+        config.wrap(configs.PRESETS["omnire_bilateral"]),
+        [o for name, over, _, _ in OPTION_VARIANTS if name != "sky_none"
+         for o in over])
+    rig = {"data": {"scene_dir": "tests/fixtures/proto_scene",
+                    "pixel_pack": "tests/fixtures/proto_scene_pixels.npz",
+                    "cameras": [0, 1], "num_cams": 2, "downscale": 1,
+                    "test_image_stride": 10}}
+    files = {}
+    for name, tree in (("method", method), ("rig", rig)):
+        files[name] = os.path.join(out, f"{name}.yaml")
+        with open(files[name], "w") as f:
+            f.write(yaml_text(tree) + "\n")
+        check(config.load_yaml(files[name]) == tree,
+              f"{name}.yaml does not read back")
+    check(method["trainer"]["sky_model"] == "mlp"
+          and method["trainer"]["use_voxel_deformer"] is True
+          and method["losses"]["rigid_temporal"] == 0.01
+          and {"flatten", "sparse_reg", "max_s_square_reg"}
+          <= set(method["background_reg"]), f"method tree {method}")
+    over = [f"trainer.max_steps={CLI_YAML_STEPS}", "smpl.model_path=synthetic",
+            "res_schedule.double_steps=25", "res_schedule.downscale_times=1",
+            "density.warmup_steps=10", "density.refine_interval=20",
+            "logging.ckpt_every=25", "logging.log_every=25"]
+    argv = ["--config_file", files["method"], "--dataset_file", files["rig"],
+            "--output_root", out]
+    train_s = run_cli("train", *argv, "--run_name", "yaml", *over)
+    run_dir = os.path.join(out, "yaml")
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    launched = summ["launches"]
+    check(summ["steps"] == CLI_YAML_STEPS
+          and summ["final_points"].get("SMPLNodes", 0) > 0,
+          f"trained {summ['steps']} steps, {summ['final_points']}")
+    check(launched["segment_sum_rows"] == 0 and launched["splat_grad"] == 0
+          and all(launched[k] >= CLI_YAML_STEPS for k in TRAIN_PATH
+                  if k != "splat_grad"),
+          f"the CLI run's launches {launched}")
+    check(summ["nonfinite_params_max"] == 0 and summ["overflow_steps"] == 0,
+          f"guards: {summ}")
+    with open(os.path.join(run_dir, "config.json")) as f:
+        saved = json.load(f)
+    check(saved["trainer"]["sky_model"] == "mlp"
+          and saved["data"]["cameras"] == [0, 1],
+          f"config.json {saved['trainer']} {saved['data']}")
+    ckpt = os.path.join(run_dir, "checkpoints",
+                        f"checkpoint_{CLI_YAML_RESUME}.pt")
+    check(os.path.exists(ckpt), f"no checkpoint {ckpt}")
+    # the resume and the evaluation of the uninterrupted run side by side,
+    # both with the lpips weights named
+    os.environ["BILATERAL_LPIPS_WEIGHTS"] = weights
+    t1 = time.perf_counter()
+    try:
+        run_clis(("train", *argv, "--run_name", "resume", "--resume_from",
+                  ckpt, *over), ("eval", "--log_dir", run_dir))
+    finally:
+        del os.environ["BILATERAL_LPIPS_WEIGHTS"]
+    resume_eval_s = time.perf_counter() - t1
+    final = [torch.load(os.path.join(out, r, "checkpoints",
+                                     f"checkpoint_{CLI_YAML_STEPS}.pt"),
+                        map_location="cpu", weights_only=False)
+             for r in ("yaml", "resume")]
+    check("voxel_w_correction" in final[0]["params"]["SMPLNodes"]
+          and "embedding" in final[0]["params"]["Sky"],
+          "the checkpoint lacks the voxel correction or the MLP sky")
+    for k in ("params", "aux", "masks", "stats", "opt", "step", "updates",
+              "generator", "extra"):
+        bit_equal(final[0][k], final[1][k], k)
+    with open(os.path.join(run_dir, "metrics_test.json")) as f:
+        test = json.load(f)
+    check(isinstance(test.get("lpips"), float) and math.isfinite(
+        test["lpips"]) and math.isfinite(test["psnr"]),
+          f"metrics_test.json: {test}")
+    phase("cli_yaml", t0, steps=summ["steps"],
+          steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          peak_mem_bytes=summ["peak_mem_bytes"],
+          final_points=summ["final_points"], refines=summ["refines"],
+          launches=launched, resumed_from=CLI_YAML_RESUME,
+          resume_bit_equal=True, test_psnr=test["psnr"],
+          test_lpips=test["lpips"], train_s=round(train_s, 2),
+          resume_and_eval_s=round(resume_eval_s, 2), device=str(dev),
+          nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
     return launched
 
 
@@ -2981,7 +3284,18 @@ def main() -> int:
         k["launches_background_variants"] = {
             name: {"train": launched[k["name"]], "steps": 1}
             for name, launched in bg_launches.items()}
+    opt_launches, renders = option_variants(args, dev, scene_rng, batches)
+    for k in kernels:
+        k["launches_option_variants"] = {
+            name: {"train": launched[k["name"]], "steps": 1}
+            for name, launched in opt_launches.items()}
     del scene_rng, batches
+    lpips_weights = lpips_phase(dev, renders)
+    del renders
+    yaml_l = cli_yaml(dev, lpips_weights)
+    for k in kernels:
+        k["launches_cli_yaml"] = {"train": yaml_l[k["name"]],
+                                  "steps": CLI_YAML_STEPS}
 
     render_l = cli(dev)
     for k in kernels:

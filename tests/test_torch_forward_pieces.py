@@ -17,7 +17,7 @@ from bilateral_driving_tpu_torch.data import synthetic
 from bilateral_driving_tpu_torch.eval import render_loop
 from bilateral_driving_tpu_torch.models import bilateral, sky
 from bilateral_driving_tpu_torch.ops import expand_cuda, rasterize_cuda
-from bilateral_driving_tpu_torch.train import trainer
+from bilateral_driving_tpu_torch.train import setup, trainer
 
 from test_torch_forward import CAP, H, R, STEP, W
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -99,6 +99,13 @@ def test_render_images_on_a_synthetic_scene():
 
 
 def test_unported_branches_name_their_slice():
-    cfg = configs.flagship_config(1, 1, sky_model="mlp")
-    with pytest.raises(NotImplementedError, match="slice"):
-        trainer.collect_gaussians(cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0)
+    """Every sky model of the JAX trainer is ported (envlight, mlp, none);
+    an unknown one raises a ValueError naming them, from the trainer and
+    from the set-up."""
+    cfg = configs.flagship_config(1, 1, sky_model="cubemap")
+    for build in (lambda: trainer.collect_gaussians(
+                      cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0),
+                  lambda: setup.build_models(cfg, "cpu")):
+        with pytest.raises(ValueError,
+                           match="'cubemap'.*'envlight', 'mlp', 'none'"):
+            build()

@@ -1,10 +1,11 @@
 """The port's blended-rotation gradient, pose loader, single bilateral grid and
-the voxel deformer's raise against the JAX package (helpers in
+the SMPL means through the voxel deformer against the JAX package (helpers in
 tests/test_torch_smpl.py). Split from that file: the port's test files hold
 at most four tests each, bar one parametrized test or tests that share a
 module fixture, so that pytest-xdist's count-ordered queue (--dist loadfile)
 runs them after tests/test_parallel.py (README).
 """
+import dataclasses
 import os
 
 import jax
@@ -16,12 +17,17 @@ import torch
 from bilateral_driving_tpu.core import transforms as jtransforms
 from bilateral_driving_tpu.data import scene as jscene
 from bilateral_driving_tpu.models import bilateral as jbilateral
+from bilateral_driving_tpu.models import encoders as jencoders
+from bilateral_driving_tpu.scene import smpl_model as jsmpl_model
+from bilateral_driving_tpu.scene import voxel_deformer as jvd
+from bilateral_driving_tpu.train import trainer as jtrainer
 from bilateral_driving_tpu_torch import configs
 from bilateral_driving_tpu_torch.core import transforms
 from bilateral_driving_tpu_torch.data import scene
 from bilateral_driving_tpu_torch.models import bilateral
+from bilateral_driving_tpu_torch.scene import smpl_model
 from bilateral_driving_tpu_torch.tools import common
-from bilateral_driving_tpu_torch.train import trainer
+from bilateral_driving_tpu_torch.train import setup, trainer
 from bilateral_driving_tpu_torch.utils import config
 
 from test_torch_smpl import EPS, SCENE, _rel, _t
@@ -114,13 +120,61 @@ def test_single_grid_matches_jax():
 
 
 def test_voxel_deformer_names_its_slice():
+    """collect_gaussians with the voxel skinning deformer on gives the JAX
+    package's SMPL means (atol 1e-5): two pedestrians of the port's
+    64-vertex synthetic body built by setup.build_smpl with the deformer,
+    its correction off zero, posed at a frame with perturbed joints,
+    beside a small Background; the same arrays handed to the JAX
+    package's jitted collect_gaussians."""
+    g = torch.Generator().manual_seed(4)
+    F, I, V = 3, 2, 64
+    model = smpl_model.synthetic_model(g, num_verts=V, device="cpu")
+    da = smpl_model.da_pose_quats(device="cpu")
+    sp, ss, sa, sm = setup.build_smpl(
+        g, model, torch.randn((I, 10), generator=g),
+        da[0].expand(F, I, 1, 4) + 0.1 * torch.randn((F, I, 1, 4),
+                                                     generator=g),
+        da[1:].expand(F, I, 23, 4) + 0.1 * torch.randn((F, I, 23, 4),
+                                                       generator=g),
+        torch.randn((F, I, 3), generator=g) + torch.tensor([0, 0, 8.0]),
+        torch.ones((F, I), dtype=torch.bool), use_voxel_deformer=True)
+    sp["voxel_w_correction"] += 0.02 * torch.randn(
+        sp["voxel_w_correction"].shape, generator=g)
+    bp, bm = setup.build_background(
+        g, 64, torch.rand((48, 3), generator=g) * 10 + torch.tensor(
+            [-5, -5, 15.0]), torch.rand((48, 3), generator=g))
+    params = {"Background": bp, "SMPLNodes": sp}
+    statics = {"Background": {}, "SMPLNodes": {**ss, **sa}}
+    masks = {"Background": bm, "SMPLNodes": sm}
     cfg = common.trainer_config_from(config.apply_dotlist(
         config.wrap(configs.OMNIRE_BILATERAL_TREE),
-        ["trainer.use_voxel_deformer=true"]), 1, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="voxel-deformer slice"):
-        trainer.collect_gaussians(cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0)
-    cfg = common.trainer_config_from(config.apply_dotlist(
-        config.wrap(configs.OMNIRE_BILATERAL_TREE),
-        ["trainer.sky_model=mlp"]), 1, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="sky-MLP slice"):
-        trainer.collect_gaussians(cfg, {}, {}, {}, torch.zeros(3), 0, 0, 0.0)
+        ["trainer.use_voxel_deformer=true", "trainer.use_rigid=false",
+         "trainer.use_deformable=false"]), 1, F, 1.0)
+
+    j = lambda x: jnp.asarray(x.numpy())
+    t, v = ss["template"], ss["vd_statics"]
+    jstatics = {"Background": {}, "SMPLNodes": {
+        "template": jsmpl_model.SMPLTemplate(
+            j(t.j_canonical), j(t.a0_inv), j(t.verts_canonical),
+            j(t.lbs_weights), jencoders.Static(t.parents)),
+        "vd_statics": jvd.VoxelDeformerStatics(
+            j(v.lbs_voxel_base), j(v.offset), j(v.scale), v.ratio),
+        **{k: j(ss[k]) for k in ("instances_fv", "nn_ind", "on_mesh_x")},
+        "point_ids": j(sa["point_ids"])}}
+    jcfg = jtrainer.TrainerConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    jm, jl = jax.jit(lambda p, s, m: jtrainer.collect_gaussians(
+        jcfg, p, s, m, jnp.zeros(3), 0, 1, 0.5))(
+        jax.tree.map(j, params), jstatics, jax.tree.map(j, masks))
+    full = trainer.merge_statics(statics, {})
+    tm, tl = trainer.collect_gaussians(cfg, params, full, masks,
+                                       torch.zeros(3), 0, 1, 0.5)
+    smpl = tl.numpy() == 2
+    assert smpl.sum() == I * V and np.array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(tm.means.numpy()[smpl],
+                               np.asarray(jm.means)[smpl], atol=1e-5, rtol=0)
+    # the deformer's weights moved the pedestrians off the mesh weights'
+    tm0, _ = trainer.collect_gaussians(
+        dataclasses.replace(cfg, use_voxel_deformer=False), params, full,
+        masks, torch.zeros(3), 0, 1, 0.5)
+    assert float((tm0.means - tm.means)[smpl].abs().max()) > 1e-3
