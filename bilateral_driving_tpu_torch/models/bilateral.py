@@ -17,6 +17,7 @@ from typing import Sequence
 
 import torch
 
+from ..core.indexing import take_rows
 from . import encoders
 
 RGB2GRAY = (0.299, 0.587, 0.114)      # BT601
@@ -61,7 +62,7 @@ def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     flat = vol.reshape(C, D * H * W).T                 # (cells, C)
 
     def corner(zi, yi, xi, w):
-        return flat[(zi * H + yi) * W + xi] * w[:, None]
+        return take_rows(flat, (zi * H + yi) * W + xi) * w[:, None]
 
     out = (corner(z0, y0, x0, (1 - wz) * (1 - wy) * (1 - wx))
            + corner(z0, y0, x1, (1 - wz) * (1 - wy) * wx)

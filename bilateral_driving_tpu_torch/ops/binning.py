@@ -59,6 +59,22 @@ def spans(means2d, radii, valid, width: int, height: int) -> Spans:
     return Spans(tx0, ty0, torch.clamp(tx1 - tx0, min=1), counts)
 
 
+def entries_above(means2d, radii, valid, width: int, tile_rows: int):
+    """() int64: the entries `spans` would give the `tile_rows` tile rows
+    just above the render (the rows of a larger image above a band whose
+    means2d are the band's)."""
+    ntx, _ = num_tiles(width, TILE)
+    r = radii.float()
+    x, y = means2d[..., 0], means2d[..., 1]
+    tx0 = torch.clamp(torch.floor((x - r) / TILE), 0, ntx)
+    tx1 = torch.clamp(torch.ceil((x + r) / TILE), 0, ntx)
+    ty0 = torch.clamp(torch.floor((y - r) / TILE), -tile_rows, 0)
+    ty1 = torch.clamp(torch.ceil((y + r) / TILE), -tile_rows, 0)
+    n = torch.where(valid & (radii > 0), (tx1 - tx0) * (ty1 - ty0),
+                    torch.zeros_like(tx0))
+    return torch.sum(n.to(torch.int64))
+
+
 class Expansion(NamedTuple):
     offsets: torch.Tensor     # (N+1,) int32 segment starts, clamped to cap
     num_isects: torch.Tensor  # () int32, before truncation

@@ -36,7 +36,18 @@ class Projected(NamedTuple):
 def project(means, quats, scales, viewmat, K, width: int, height: int, *,
             near_plane: float = 0.01, far_plane: float = 1e10,
             radius_clip: float = 0.0, antialiased: bool = False,
-            eps2d: float = EPS2D) -> Projected:
+            eps2d: float = EPS2D, fov_extent: tuple | None = None,
+            row_offset: int = 0, cull_rows: tuple | None = None
+            ) -> Projected:
+    """Rendering a band of a larger image (tile bands): `fov_extent`, the
+    full image's (width, height), sets the field of view of the Jacobian's
+    frustum clamp (None: the render's own extent), `row_offset`, the
+    band's first row, is subtracted from the projected means after the
+    principal point is added, so they are exactly the full image's less
+    it and the bands stitch without seams, and `cull_rows`, the rows
+    (first, end) a Gaussian must reach to stay valid, in the render's
+    coordinates (None: (0, height)), lets a band keep the full image's
+    Gaussians, radii and valid flags."""
     R = viewmat[:3, :3]
     t = viewmat[:3, 3]
     mean_c = means @ R.T + t
@@ -67,8 +78,9 @@ def project(means, quats, scales, viewmat, K, width: int, height: int, *,
     zs = torch.clamp(z, min=near_plane)
     rz = 1.0 / zs
 
-    lim_x = 1.3 * (0.5 * width / fx)
-    lim_y = 1.3 * (0.5 * height / fy)
+    fov_w, fov_h = fov_extent if fov_extent is not None else (width, height)
+    lim_x = 1.3 * (0.5 * fov_w / fx)
+    lim_y = 1.3 * (0.5 * fov_h / fy)
     tx = zs * torch.clamp(mean_c[..., 0] * rz, -lim_x, lim_x)
     ty = zs * torch.clamp(mean_c[..., 1] * rz, -lim_y, lim_y)
 
@@ -104,20 +116,23 @@ def project(means, quats, scales, viewmat, K, width: int, height: int, *,
     v1 = b_mid + disc
     radius = torch.ceil(3.0 * torch.sqrt(torch.clamp(v1, min=0.0)))
 
-    means2d = torch.stack([fx * mean_c[..., 0] * rz + cx,
-                           fy * mean_c[..., 1] * rz + cy], dim=-1)
+    my = fy * mean_c[..., 1] * rz + cy
+    if row_offset:
+        my = my - row_offset
+    means2d = torch.stack([fx * mean_c[..., 0] * rz + cx, my], dim=-1)
 
     finite = torch.isfinite(det)
     for x in (means, quats, scales):
         if x.requires_grad:
             x.register_hook(lambda g: torch.where(finite[:, None], g,
                                                   torch.zeros_like(g)))
+    row0, row1 = cull_rows if cull_rows is not None else (0, height)
     valid = ((z > near_plane) & (z < far_plane) & (det > 0.0) & finite
              & (radius > radius_clip)
              & (means2d[..., 0] + radius > 0)
              & (means2d[..., 0] - radius < width)
-             & (means2d[..., 1] + radius > 0)
-             & (means2d[..., 1] - radius < height))
+             & (means2d[..., 1] + radius > row0)
+             & (means2d[..., 1] - radius < row1))
     radii = torch.where(valid, radius, torch.zeros_like(radius)).to(
         torch.int32)
     return Projected(means2d, conic, z, radii, compensations, valid)

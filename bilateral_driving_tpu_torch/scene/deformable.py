@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import gaussians as G
+from ..core.indexing import take_rows
 from ..core.transforms import quat_normalize
 from . import rigid
 
@@ -72,7 +73,7 @@ def node_gaussians(params, statics, mask, cam_origin, step: int, frame: int,
     pid = statics["point_ids"].long()
     sizes = statics["instances_size"][pid]
     x_norm = params["means"] / torch.clamp(sizes, min=1e-6)
-    emb = params["instance_embeds"][pid]
+    emb = take_rows(params["instance_embeds"], pid)
     tt = torch.full((x_norm.shape[0], 1), float(t), dtype=x_norm.dtype,
                     device=x_norm.device)
     d_xyz, d_quat, d_scale = params["deform_net"](x_norm, tt, emb)

@@ -1,5 +1,4 @@
-"""Training CLI: port of bilateral_driving_tpu/tools/train.py, single
-device.
+"""Training CLI: port of bilateral_driving_tpu/tools/train.py.
 
     python -m bilateral_driving_tpu_torch.tools.train \
         --config omnire_ms_bilateral --output_root ./work_dirs \
@@ -29,7 +28,10 @@ with the non-finite loss and non-finite parameter guards and the
 full-state checkpoints every `logging.ckpt_every` steps. `--resume_from`
 continues from a checkpoint exactly as the uninterrupted run would.
 
-The run directory `<output_root>/<run_name>` receives config.json,
+The run directory `<output_root>/<project>/<run_name>` (as the JAX CLI's;
+without `--project`, `<output_root>/<run_name>`, the layout the port's
+eval, render and viewer commands, README and chip_smoke.py use: the JAX
+CLI's default project names the JAX package) receives config.json,
 metrics.json, log.txt, checkpoints/, test_metrics.json (the first 20 test
 images) and train_summary.json (steps, steps/s, peak device memory,
 kernel launch counts, refinements, guards, the first and last flushed
@@ -40,9 +42,21 @@ tb/ (utils/tb, written by the port itself) and a copy of the port's
 sources in backup/ (utils/backup). In synthetic mode the metrics come
 from every frame, as every frame trains. `--viewer_port PORT` serves the
 live viewer (tools/viewer) while training; `--enable_wandb` logs to wandb
-where it is installed. The multi-GPU flags (--data_parallel,
---tile_parallel, --coordinator, --num_processes, --process_id) are not
-ported yet: the parallel slice.
+(the project named by `--project`) where it is installed.
+
+Parallel training (parallel/), the JAX CLI's plan: `--data_parallel N`
+trains a batch of N images a step, one per device (-1: every device);
+`--tile_parallel T` splits each image's rasterization into T bands over T
+devices, with --data_parallel a (data x tile) grid (render.isect_capacity
+is per band); both start their ranks from this one command
+(torch.multiprocessing, a file:// rendezvous in the run directory), each
+rank on `cuda:<rank>` or, with --device cpu, on the CPU. `--coordinator
+HOST:PORT --num_processes P --process_id I` makes this process rank I of a
+data-parallel run of P processes started apart (one device each; not with
+--tile_parallel). NCCL joins CUDA ranks, gloo CPU ranks. Rank 0 writes the
+run directory, rank r > 0 `proc<r>` under it; every rank keeps the same
+replicated state. `trainer.steps_per_dispatch` is ignored on the parallel
+path. A rank that fails ends the run with a non-zero exit.
 """
 from __future__ import annotations
 
@@ -51,15 +65,19 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from .. import configs
 from ..data import importance, synthetic
 from ..eval import render_loop
 from ..ops import pipeline
+from ..parallel import data_parallel, distributed, tile_parallel
 from ..train import checkpoint, trainer
 from ..utils import backup as backup_lib
 from ..utils import config as config_lib
@@ -80,6 +98,10 @@ def parse_args(argv=None):
     p.add_argument("--dataset_file", default=None,
                    help="a dataset rig YAML merged over the method's tree")
     p.add_argument("--output_root", default="./work_dirs")
+    p.add_argument("--project", default=None,
+                   help="write to <output_root>/<project>/<run_name> "
+                        "(default: <output_root>/<run_name>); the wandb "
+                        "project")
     p.add_argument("--run_name", default="run")
     p.add_argument("--resume_from", default=None,
                    help="checkpoint file to continue from")
@@ -91,6 +113,20 @@ def parse_args(argv=None):
     p.add_argument("--enable_wandb", action="store_true",
                    help="log to wandb where the package is installed "
                         "(offline without an API key)")
+    # multi-device / multi-process (parallel/)
+    p.add_argument("--tile_parallel", type=int, default=0,
+                   help="shard each image's rasterization into N horizontal"
+                        " bands over a `tile` mesh axis (hybrid with"
+                        " --data_parallel; parallel/tile_parallel.py)."
+                        " render.isect_capacity is PER BAND")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="shard each step's image batch over this many "
+                        "devices (0 = single device, -1 = all devices)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 for multi-host runs (or "
+                        "an init method URL, e.g. file:///shared/path)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("opts", nargs="*", help="dotlist overrides key=value")
     return p.parse_args(argv)
 
@@ -176,12 +212,117 @@ def build_synthetic(cfg, seed: int, dev):
     return tcfg, synthetic.RenderedFrames(scene, pixels), statics, state
 
 
+def run_dir(args) -> str:
+    """<output_root>/<project>/<run_name>, or <output_root>/<run_name>."""
+    return os.path.join(args.output_root, *(
+        [args.project] if args.project else []), args.run_name)
+
+
+def parallel_plan(args, dev):
+    """(n_data, n_tile) of a run started by this one command, the JAX
+    CLI's plan (tools/train.py:152-207): n_data 0 trains on one device
+    without a process group, n_tile > 1 is a (data x tile) grid. None for
+    a rank of a multi-process run (--num_processes)."""
+    tile_n = max(args.tile_parallel, 0)
+    if args.num_processes is not None:
+        if tile_n > 1:
+            raise ValueError("--tile_parallel with --num_processes is not "
+                             "supported yet (tile bands are intra-host)")
+        return None
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if tile_n > 1:
+        plan = (max(count // tile_n, 1) if args.data_parallel < 0
+                else max(args.data_parallel, 1)), tile_n
+    elif args.data_parallel < 0 or args.data_parallel > 1:
+        plan = (count if args.data_parallel < 0 else args.data_parallel), 1
+    else:
+        return 0, 1
+    if dev.type == "cuda" and plan[0] * plan[1] > count:
+        raise ValueError(f"{plan[0]} x {plan[1]} ranks need as many CUDA "
+                         f"devices, have {count}")
+    return plan
+
+
+def rank_device(dev: torch.device, rank: int) -> torch.device:
+    """A rank's device: CUDA device rank % count, or the CPU."""
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _rank_main(rank: int, argv, n_data: int, n_tile: int, store: str,
+               threads: int):
+    """One local rank of a parallel run (torch.multiprocessing's target)."""
+    torch.set_num_threads(threads)
+    args = parse_args(argv)
+    dev = rank_device(device_of(args.device), rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(distributed.backend_for(dev), init_method=store,
+                            world_size=n_data * n_tile, rank=rank)
+    try:
+        return train(args, dev, n_data, n_tile)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     dev = device_of(args.device)
+    plan = parallel_plan(args, dev)
+    if plan is None:
+        # a rank of a multi-process run started apart
+        dev = rank_device(dev, args.process_id or 0)
+        multiprocess = distributed.maybe_initialize(distributed.DistConfig(
+            args.coordinator, args.num_processes, args.process_id), dev)
+        try:
+            return train(args, dev, dist.get_world_size() if multiprocess
+                         else 0, 1)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    n_data, n_tile = plan
+    if n_data == 0:
+        return train(args, dev, 0, 1)
+    # local ranks: a file store in the run directory, fresh for this run
+    base = run_dir(args)
+    os.makedirs(base, exist_ok=True)
+    store_file = os.path.abspath(os.path.join(base, "rendezvous"))
+    if os.path.exists(store_file):
+        os.remove(store_file)
+    store = f"file://{store_file}"
+    ranks = n_data * n_tile
+    try:
+        if ranks == 1:
+            return _rank_main(0, argv, n_data, n_tile, store,
+                              torch.get_num_threads())
+        mp.spawn(_rank_main, nprocs=ranks, join=True, args=(
+            argv, n_data, n_tile, store,
+            max(torch.get_num_threads() // ranks, 1)))
+    finally:
+        if os.path.exists(store_file):
+            os.remove(store_file)
+    with open(os.path.join(base, "train_summary.json")) as f:
+        return json.load(f)
+
+
+def train(args, dev, n_data: int, n_tile: int):
+    """Train on `dev`: alone (n_data 0), or as this process's rank of an
+    initialised process group, data parallel over n_data ranks (n_tile
+    1) or over a (n_data x n_tile) grid. Returns the train summary."""
+    if n_data == 0:
+        mesh = None
+    elif n_tile > 1:
+        mesh = tile_parallel.make_hybrid_mesh(n_data, n_tile, dev)
+    else:
+        mesh = data_parallel.make_mesh(n_data, device=dev)
+    rank = dist.get_rank() if mesh is not None else 0
     cfg = config_tree(args)
     synthetic_mode = bool(cfg.get_path("data.synthetic", False))
-    log_dir = os.path.join(args.output_root, args.run_name)
+    log_dir = run_dir(args)
+    if rank > 0:
+        log_dir = os.path.join(log_dir, f"proc{rank}")
     os.makedirs(log_dir, exist_ok=True)
     setup_logging(log_dir)
     config_lib.save_config(cfg, os.path.join(log_dir, "config.json"))
@@ -223,6 +364,15 @@ def main(argv=None):
         logger.info(f"resumed from {args.resume_from} @ step {state.step}")
 
     spd = max(int(cfg.get_path("trainer.steps_per_dispatch", 1) or 1), 1)
+    hybrid = isinstance(mesh, tile_parallel.HybridMesh)
+    if mesh is not None:
+        logger.info((f"hybrid data x tile over {mesh.data.size} x "
+                     f"{mesh.tile.size} ranks" if hybrid else
+                     f"data-parallel over {mesh.size} ranks")
+                    + f", this rank {rank} on {dev}")
+        if spd > 1:
+            logger.info("steps_per_dispatch ignored on the parallel path")
+            spd = 1
     max_steps = tcfg.max_steps
     ckpt_every = cfg.get_path("logging.ckpt_every", 10000)
     log_every = cfg.get_path("logging.log_every", 100)
@@ -235,7 +385,8 @@ def main(argv=None):
     rs_times = int(cfg.get_path("res_schedule.downscale_times", 0) or 0)
     mlogger = MetricLogger(output_file=os.path.join(log_dir, "metrics.json"))
     tbw = tb_lib.TBWriter(os.path.join(log_dir, "tb"))
-    wb = tb_lib.WandbWriter(args.enable_wandb, "bilateral_driving_tpu_torch",
+    wb = tb_lib.WandbWriter(args.enable_wandb,
+                            args.project or "bilateral_driving_tpu_torch",
                             args.run_name, config=dict(cfg), log_dir=log_dir)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
 
@@ -403,7 +554,7 @@ def main(argv=None):
     # the current state, the training stats, a pause button
     live_viewer = None
     step_lock = contextlib.nullcontext()
-    if args.viewer_port:
+    if args.viewer_port and rank == 0:
         from . import viewer as viewer_mod
 
         live_viewer = viewer_mod.Viewer(
@@ -413,6 +564,25 @@ def main(argv=None):
             port=args.viewer_port).start()
         step_lock = live_viewer.lock
         logger.info(f"live viewer at http://127.0.0.1:{live_viewer.port}/")
+
+    def parallel_step(step: int, ds: int):
+        """One step of this rank: the images the step trains (every rank's
+        sampler, seeded alike, proposes the same batch and the rank takes
+        its row; ranks of a multi-process run draw process_train_indices)
+        and (state, metrics)."""
+        if args.num_processes is not None:
+            idxs = [int(i) for i in distributed.process_train_indices(
+                train_indices, args.seed, step, mesh)]
+            batch = distributed.host_local_batch_to_global(
+                data.get_batch(idxs[0], ds), mesh)
+        else:
+            rows = mesh.data if hybrid else mesh
+            idxs = [int(sampler.propose(train_indices))
+                    for _ in range(rows.size)]
+            batch = data.get_batch(idxs[rows.rank], ds)
+        step_fn = (tile_parallel.tile_train_step if hybrid
+                   else data_parallel.parallel_train_step)
+        return idxs, step_fn(tcfg, statics, mesh)(state, batch)
 
     start_step = step = int(state.step)
     t0 = time.perf_counter()
@@ -429,11 +599,16 @@ def main(argv=None):
             if (refresh_every > 0 and step > 0 and step % refresh_every == 0
                     and not synthetic_mode):
                 refresh_error_buffer()
-            idxs = [int(sampler.propose(train_indices)) for _ in range(k)]
-            for j, idx in enumerate(idxs):
-                state, metrics = trainer.train_step(tcfg, statics, state,
-                                                    data.get_batch(idx, ds))
-                pending.append((step + j, [idx], metrics))
+            if mesh is not None:
+                idxs, (state, metrics) = parallel_step(step, ds)
+                pending.append((step, idxs, metrics))
+            else:
+                idxs = [int(sampler.propose(train_indices))
+                        for _ in range(k)]
+                for j, idx in enumerate(idxs):
+                    state, metrics = trainer.train_step(
+                        tcfg, statics, state, data.get_batch(idx, ds))
+                    pending.append((step + j, [idx], metrics))
         summary["downscales"][str(ds)] = summary["downscales"].get(
             str(ds), 0) + k
         last = step + k - 1       # post-step events key off the window end
@@ -492,6 +667,11 @@ def main(argv=None):
         "isect_capacity": tcfg.isect_capacity,
         "launches": counts,
         "device": str(dev),
+        "parallel": (None if mesh is None else {
+            "ranks": mesh.size, "rank": rank,
+            "data": mesh.data.size if hybrid else mesh.size,
+            "tile": mesh.tile.size if hybrid else 1,
+            "backend": dist.get_backend()}),
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
         "final_points": last_points.get(max_steps - 1),

@@ -238,7 +238,7 @@ def collect_gaussians(cfg: TrainerConfig, params, statics, masks, cam_origin,
 def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
             in_test_set: bool = False, novel_view: bool = False,
             neighbor_idx=None, means2d_dummy=None, opacity_multiplier=None,
-            time_offset=0.0):
+            time_offset=0.0, rasterize_fn=None):
     """Render one camera, differentiably where grad mode is on.
 
     batch: camera_to_world (4, 4), intrinsics (3, 3), pixels (H, W, 3),
@@ -250,7 +250,9 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
     averaged, and the affine codes take their mean embedding.
     `means2d_dummy`: (N, 2) zeros whose gradient is the screen-space
     gradient of each Gaussian; `opacity_multiplier` and `time_offset`: see
-    collect_gaussians.
+    collect_gaussians. `rasterize_fn` replaces pipeline.rasterize with the
+    same call contract (the tile-parallel trainer renders bands through
+    it, parallel/tile_parallel.py); every other stage stays as it is.
     """
     h, w = batch["pixels"].shape[:2]
     c2w = batch["camera_to_world"]
@@ -273,7 +275,7 @@ def forward(cfg: TrainerConfig, params, statics, masks, batch, step: int,
         near_plane=cfg.near_plane, far_plane=cfg.far_plane,
         radius_clip=cfg.radius_clip, antialiased=cfg.antialiased,
         isect_capacity=cfg.isect_capacity)
-    out = pipeline.rasterize(
+    out = (rasterize_fn or pipeline.rasterize)(
         merged.means, merged.quats, merged.scales, merged.opacities,
         merged.rgbs, viewmat, batch["intrinsics"], w, h, rcfg,
         means2d_dummy=means2d_dummy)
@@ -604,11 +606,11 @@ def temporal_offset(cfg: TrainerConfig, generator: torch.Generator):
 
 
 def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch,
-                  time_offset=None):
+                  time_offset=None, rasterize_fn=None):
     """Gradients of one image: (total, loss dict, outputs, grads by leaf
     path, screen-space gradient (N, 2) of the concatenated Gaussians).
     `time_offset`: PVG's smoothing offset, drawn from the state's
-    generator when None."""
+    generator when None; `rasterize_fn`: see forward."""
     if time_offset is None:
         time_offset = temporal_offset(cfg, state.generator)
     full_statics = merge_statics(statics, state.aux)
@@ -619,7 +621,7 @@ def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch,
         dummy = torch.zeros((n_total, 2), device=dev, requires_grad=True)
         outputs = forward(cfg, state.params, full_statics, state.masks, batch,
                           state.step, means2d_dummy=dummy,
-                          time_offset=time_offset)
+                          time_offset=time_offset, rasterize_fn=rasterize_fn)
         loss = compute_losses(cfg, state.params, full_statics, state.masks,
                               outputs, batch, state.step)
         total = sum(loss.values())
@@ -632,12 +634,32 @@ def compute_grads(cfg: TrainerConfig, statics, state: TrainerState, batch,
         outputs, g_params, g_dummy
 
 
+def image_psnr(outputs, batch) -> torch.Tensor:
+    """The step's PSNR metric: the render against the batch's pixels."""
+    return losses.psnr(outputs["rgb"].detach(), batch["pixels"])
+
+
 @torch.no_grad()
 def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
                            batch, total, loss_dict, outputs, g_params,
                            g_dummy):
     """Optimizer update, density statistics and periodic refinement, in
     place. Returns (state, metrics) with state.step advanced by one."""
+    info = outputs["info"]
+    return update_and_refine(
+        cfg, statics, state, batch["pixels"].shape[:2], total, loss_dict,
+        g_params, g_dummy, info["radii"], info["overflow"],
+        info["num_isects"], image_psnr(outputs, batch))
+
+
+@torch.no_grad()
+def update_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
+                      image_hw, total, loss_dict, g_params, g_dummy, radii,
+                      overflow, num_isects, psnr):
+    """apply_grads_and_refine on the step's reductions: the image's (h, w),
+    the total and loss dict, the gradients and the screen-gradient dummy,
+    the per-Gaussian radii, the overflow flag, num_isects and the PSNR
+    metric (the parallel steps pass them reduced over their ranks)."""
     scheds = make_schedules(cfg)
     for name, p in named_leaves(state.params):
         p.grad = g_params[name]
@@ -649,8 +671,7 @@ def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
 
     # screen-space statistics, scaled by (W/2, H/2) as the reference does
     # before the norm (densify_grad_thresh is tuned for that scale)
-    radii = outputs["info"]["radii"]
-    h, w = batch["pixels"].shape[:2]
+    h, w = image_hw
     last_size = float(max(h, w))
     grad_scale = torch.tensor([w / 2.0, h / 2.0], device=g_dummy.device)
     offset = 0
@@ -699,9 +720,9 @@ def apply_grads_and_refine(cfg: TrainerConfig, statics, state: TrainerState,
             refine_dropped = refine_dropped + info["dropped"]
 
     metrics = {"loss": total,
-               "psnr": losses.psnr(outputs["rgb"].detach(), batch["pixels"]),
-               "isect_overflow": outputs["info"]["overflow"].to(torch.float32),
-               "num_isects": outputs["info"]["num_isects"].to(torch.float32),
+               "psnr": psnr,
+               "isect_overflow": overflow.to(torch.float32),
+               "num_isects": num_isects.to(torch.float32),
                "refine_dropped": refine_dropped.to(torch.float32),
                "nonfinite_params": sum(
                    torch.sum(~torch.isfinite(p)).to(torch.float32)

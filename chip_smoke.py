@@ -10,7 +10,9 @@ appearance codes with camera refinement), takes a step of each other
 appearance model (the neural, multi-scale neural and CP-4D grids, the
 multi-scale grids with the cycle loss), of the PVG and DeformableGS
 backgrounds and of the options no YAML turns on (the MLP sky, no sky, the
-voxel skinning deformer, the rigid and Background regularisers), computes
+voxel skinning deformer, the rigid and Background regularisers), runs the
+parallel layer at world size 1 over NCCL (data-parallel and tile steps,
+an image in bands, the CLI's parallel flags), computes
 LPIPS, trains, resumes and evaluates a scene from disk through the port's
 CLI (tools.train, tools.eval) with every preset and from YAML files,
 renders the trained run's splits and a novel trajectory (tools.render),
@@ -153,6 +155,23 @@ Phases, each printed on its own line with its result and elapsed seconds:
             the step timed 3 times, its launches (the splat none without
             an EnvLight texture), a test view (the MLP sky at the mean
             code), the peak memory
+  parallel  the parallel layer on one card: distributed.maybe_initialize
+            joins a world-size-1 NCCL group over tcp://127.0.0.1; one
+            data_parallel step and one tile_train_step of omnire_bilateral's
+            state at step 3398 on the omnire scene, each timed after a first
+            call that sets up the communicators, against train_step from a
+            copy of the state (the data step's parameters bit-equal or
+            within 1e-6 per leaf, the tile step's parameters and its band
+            path's gradients within 1e-3); image 0 whole and as 2 and 4
+            bands through tile_parallel.render_band (stitched rgb and alpha
+            within 1e-4, num_isects equal, the band-summed gradients of the
+            per-band losses within 1e-4, CUDA-event ms of each band's
+            forward and backward beside the whole image's); a band of
+            transparent Gaussians (no entries) forward and backward; then
+            three CLI runs on the fixture side by side: plain,
+            `--data_parallel -1 --project p` (metrics.json equal to the plain
+            run's) and `--coordinator --num_processes 1 --process_id 0
+            --project p`
   lpips     LPIPS (eval/lpips.py) with weights drawn from a seed and
             written in tools/export_lpips_weights.py's layout: two sky
             variants' 533 x 300 test views and their target on the card
@@ -187,8 +206,8 @@ Phases, each printed on its own line with its result and elapsed seconds:
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral, omnire, background_variants, option_variants, cli_yaml,
-render_cli, cli_synthetic and cli_downscale paths), the card's name and power limit as
+omnire_bilateral, omnire, background_variants, option_variants, parallel,
+cli_yaml, render_cli, cli_synthetic and cli_downscale paths), the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
 a run without CUDA or outside a checkout of the repository.
@@ -365,6 +384,16 @@ LPIPS_RTOL, LPIPS_REPEATS = 1e-4, 5
 # resume from checkpoint_CLI_YAML_RESUME bit-equal at the last step, eval
 # with LPIPS weights
 CLI_YAML_STEPS, CLI_YAML_RESUME = 50, 26
+# the parallel phase, on one card: NCCL at world size 1; a data-parallel
+# step of omnire_bilateral's state at step TRAIN_STEP0 against train_step
+# (bit-equal, else within PARALLEL_STEP_RTOL per leaf), a tile step (its
+# parameters and its band path's gradients within GRADS_RTOL);
+# image 0 as PARALLEL_BANDS bands through the per-band function, stitched
+# within BAND_ATOL of the full render, the band-summed gradients within
+# BAND_GRAD_RTOL; the CLI's parallel flags on the fixture for
+# CLI_PRESET_STEPS steps beside a plain run
+PARALLEL_BANDS = (2, 4)
+BAND_ATOL, BAND_GRAD_RTOL, PARALLEL_STEP_RTOL = 1e-4, 1e-4, 1e-6
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, outside the tensor cores
 # The least work each kernel must do on its inputs, for its bound.
@@ -465,6 +494,35 @@ def capturing(captured, name, fn):
         captured.setdefault(name, (a, kw))
         return fn(*a, **kw)
     return wrapped
+
+
+def pipeline_captured(captured):
+    """Route the pipeline's and the cube map's kernel calls through
+    stand-ins that record, under each kernel's name, the arguments of its
+    first call (the compositing forward's first with residuals) and then
+    call the kernel."""
+    from bilateral_driving_tpu_torch.ops import (binning, cubemap,
+                                                 cubemap_cuda, expand_cuda,
+                                                 pipeline, rasterize_cuda,
+                                                 scan_utils, segsum_cuda)
+
+    return patched(
+        (pipeline, "expand_cuda", types.SimpleNamespace(
+            expand_gather=capturing(captured, "expand",
+                                    expand_cuda.expand_gather))),
+        (pipeline, "rasterize_cuda", types.SimpleNamespace(
+            rasterize_fwd=capturing_residuals(captured),
+            rasterize_bwd=capturing(captured, "rasterize_bwd",
+                                    rasterize_cuda.rasterize_bwd))),
+        (pipeline, "segsum_cuda", types.SimpleNamespace(
+            segment_sum=capturing(captured, "segment_sum",
+                                  segsum_cuda.segment_sum))),
+        (cubemap, "cubemap_cuda", types.SimpleNamespace(
+            splat_grad=capturing(captured, "splat_grad",
+                                 cubemap_cuda.splat_grad))),
+        (binning, "scan_utils", types.SimpleNamespace(
+            cumsum=capturing(captured, "scan", scan_utils.cumsum),
+            cummax=scan_utils.cummax)))
 
 
 def capturing_residuals(captured):
@@ -1106,8 +1164,20 @@ TRAIN_PATH = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum",
               "splat_grad", "scan")
 
 
+# the render path's kernels
+RENDER_PATH = ("expand", "rasterize_fwd", "scan")
+
+
 def counts(wrappers) -> dict:
     return {k: f.launches for k, f in wrappers.items()}
+
+
+def zero_launches(wrappers) -> dict:
+    """Every wrapper's count, then every count set to 0."""
+    now = counts(wrappers)
+    for f in wrappers.values():
+        f.launches = 0
+    return now
 
 
 def isect_capacity(cfg, state, full_statics, views, width, height, K):
@@ -1144,10 +1214,6 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
 
     from bilateral_driving_tpu_torch import configs
     from bilateral_driving_tpu_torch.data import synthetic
-    from bilateral_driving_tpu_torch.ops import (binning, cubemap,
-                                                 cubemap_cuda, expand_cuda,
-                                                 pipeline, rasterize_cuda,
-                                                 scan_utils, segsum_cuda)
     from bilateral_driving_tpu_torch.train import trainer
 
     wrappers = kernel_wrappers()
@@ -1235,23 +1301,7 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
     # ---- train: the training main path, counters from 0
     t0 = time.perf_counter()
     captured = {}
-    capture = patched(
-        (pipeline, "expand_cuda", types.SimpleNamespace(
-            expand_gather=capturing(captured, "expand",
-                                    expand_cuda.expand_gather))),
-        (pipeline, "rasterize_cuda", types.SimpleNamespace(
-            rasterize_fwd=capturing_residuals(captured),
-            rasterize_bwd=capturing(captured, "rasterize_bwd",
-                                    rasterize_cuda.rasterize_bwd))),
-        (pipeline, "segsum_cuda", types.SimpleNamespace(
-            segment_sum=capturing(captured, "segment_sum",
-                                  segsum_cuda.segment_sum))),
-        (cubemap, "cubemap_cuda", types.SimpleNamespace(
-            splat_grad=capturing(captured, "splat_grad",
-                                 cubemap_cuda.splat_grad))),
-        (binning, "scan_utils", types.SimpleNamespace(
-            cumsum=capturing(captured, "scan", scan_utils.cumsum),
-            cummax=scan_utils.cummax)))
+    capture = pipeline_captured(captured)
     for f in wrappers.values():
         f.launches = 0
     before = counts(wrappers)
@@ -1620,8 +1670,8 @@ def path_kernels(name: str, captured, dev) -> dict:
     """Each kernel of a training path against its plain version on the
     arguments it was first given there: the expansion and the scan
     bit-exact, the compositing forward as forward_check, the backward,
-    the segment sums and the splat per output row within BWD_RTOL and
-    SUM_RTOL. Returns the errors."""
+    the segment sums and the splat (where the path has a sky to splat)
+    per output row within BWD_RTOL and SUM_RTOL. Returns the errors."""
     import torch
 
     from bilateral_driving_tpu_torch.ops import (cubemap_cuda, rasterize_cuda,
@@ -1648,14 +1698,16 @@ def path_kernels(name: str, captured, dev) -> dict:
           f"{name} (row relative norm {rel})")
     out["segment_sum"] = {"row_rel_norm": rel,
                           "max_abs_err": float((s_k - s_p).abs().max())}
-    pa = captured["splat_grad"][0]
-    splat_rows = lambda z: z.permute(0, 3, 1, 2).reshape(18, -1)
-    z_k, z_p = cubemap_cuda.splat_grad(*pa), cubemap_cuda.splat_grad_plain(*pa)
-    rel = max(row_rel_norms(splat_rows(z_k), splat_rows(z_p)))
-    check(rel <= SUM_RTOL, f"splat differs from its plain version: {name} "
-          f"(row relative norm {rel})")
-    out["splat_grad"] = {"row_rel_norm": rel,
-                         "max_abs_err": float((z_k - z_p).abs().max())}
+    if "splat_grad" in captured:      # a path with an EnvLight sky
+        pa = captured["splat_grad"][0]
+        splat_rows = lambda z: z.permute(0, 3, 1, 2).reshape(18, -1)
+        z_k = cubemap_cuda.splat_grad(*pa)
+        z_p = cubemap_cuda.splat_grad_plain(*pa)
+        rel = max(row_rel_norms(splat_rows(z_k), splat_rows(z_p)))
+        check(rel <= SUM_RTOL, f"splat differs from its plain version: "
+              f"{name} (row relative norm {rel})")
+        out["splat_grad"] = {"row_rel_norm": rel,
+                             "max_abs_err": float((z_k - z_p).abs().max())}
     sc = captured["scan"][0][0]
     check(torch.equal(scan_utils.cumsum(sc),
                       scan_cuda.scan_rows_plain(sc[None], "sum")[0]),
@@ -1742,7 +1794,6 @@ def smpl_preset(prefix: str, preset: str, args, dev, scene_rng=None):
     # times, counters from 0
     t0 = time.perf_counter()
     wrappers = kernel_wrappers()
-    render_path = ("expand", "rasterize_fwd", "scan")
     for f in wrappers.values():
         f.launches = 0
     before = counts(wrappers)
@@ -1756,7 +1807,7 @@ def smpl_preset(prefix: str, preset: str, args, dev, scene_rng=None):
             torch.cuda.synchronize()
             frame_ms.append(1e3 * (time.perf_counter() - t1))
             now = counts(wrappers)
-            check(all(now[k] > before[k] for k in render_path),
+            check(all(now[k] > before[k] for k in RENDER_PATH),
                   f"a kernel did not launch for view {idx}")
             before = now
         rgb = res["rgbs"][0]
@@ -2560,6 +2611,331 @@ def cli_presets(dev):
     shutil.rmtree(out)
 
 
+def parallel_phase(args, dev, scene_rng, batches) -> dict:
+    """The parallel phase: the parallel layer on one card.
+
+    maybe_initialize joins a world-size-1 process group over
+    tcp://127.0.0.1 (NCCL on the card). From omnire_bilateral's state at
+    step TRAIN_STEP0 on the omnire scene, one data_parallel step and one
+    tile_train_step (a 1 x 1 hybrid mesh) each against train_step from a
+    copy of the same state, parameters compared leaf by leaf, and the
+    tile path's gradients against the whole image's. Image 0 of
+    the same state rendered whole and as 2 and 4 bands through
+    tile_parallel.render_band (no collective): the stitched rgb and alpha
+    within BAND_ATOL of the whole render, num_isects summed over the bands
+    equal to the whole image's, the per-band losses' parameter gradients
+    summed over the bands within BAND_GRAD_RTOL of the whole image's,
+    every kernel of every band against its plain version on the
+    arguments it was given at the band's shapes (path_kernels), and
+    CUDA-event ms of each band's forward and backward beside the whole
+    image's; a band of zero-opacity Gaussians (no entries) forward and
+    backward. Then three CLI runs on the fixture side by side: a plain
+    one, `--data_parallel -1 --project p` (world size 1 on the card,
+    metrics.json equal to the plain run's) and `--coordinator
+    --num_processes 1 --process_id 0 --project p` (writes
+    <root>/p/<run>). Every count is set to 0 when the phase starts.
+    Returns each path's launches, read just after one run of it: the
+    data step's and the tile step's (one step each), each band count's
+    (every band's forward once, then every band's loss and gradients
+    once), the empty band's and the data-parallel CLI run's."""
+    import torch
+    import torch.distributed as dist
+
+    from bilateral_driving_tpu_torch.data import synthetic
+    from bilateral_driving_tpu_torch.ops import pipeline
+    from bilateral_driving_tpu_torch.ops.camera import viewmat_from_c2w
+    from bilateral_driving_tpu_torch.parallel import (data_parallel,
+                                                      distributed,
+                                                      tile_parallel)
+    from bilateral_driving_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    launched = {}       # each path's launches, read just after one run of it
+    gen = lambda: torch.Generator(device=dev).manual_seed(args.seed)
+    data = synthetic.SyntheticData(scene_rng[0])
+    cfg, state, statics = variant_state("omnire_bilateral", [], args, dev,
+                                        scene_rng, data.num_images)
+    image0 = data.get_batch(0)
+    cap, _ = isect_capacity(cfg, state, trainer.merge_statics(
+        statics, state.aux), [(batches[0], False), (image0, False)], WIDTH,
+        HEIGHT, data.scene.K)
+    cfg = dataclasses.replace(cfg, isect_capacity=cap)
+    saved = snapshot(trainer.init_state(
+        cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
+        generator=gen()))
+    del state
+
+    port = free_port()
+    multi = distributed.maybe_initialize(distributed.DistConfig(
+        f"127.0.0.1:{port}", 1, 0), dev)
+    backend = dist.get_backend()
+    check(not multi and dist.get_world_size() == 1 and backend == "nccl",
+          f"process group: multi {multi}, backend {backend}")
+    try:
+        # ---- the two parallel steps against train_step
+        mesh = distributed.global_mesh(dev)
+        hmesh = tile_parallel.make_hybrid_mesh(1, 1, dev)
+        batch = data_parallel.shard_batch(
+            data_parallel.stack_batches([batches[0]]), mesh)
+        steps = {}
+        step_rtol = {"data_parallel": PARALLEL_STEP_RTOL,
+                     "tile_parallel": GRADS_RTOL}
+        for name, step_fn in (
+                ("data_parallel",
+                 data_parallel.parallel_train_step(cfg, statics, mesh)),
+                ("tile_parallel",
+                 tile_parallel.tile_train_step(cfg, statics, hmesh))):
+            # the first call sets up the collectives' communicators
+            ms = []
+            for _ in range(2):
+                st = restore(saved, gen())
+                zero_launches(wrappers)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st, m = step_fn(st, batch)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+            step_launches = zero_launches(wrappers)
+            launched[name.replace("_parallel", "_step")] = step_launches
+            check(all(step_launches[k] >= 1 for k in TRAIN_PATH)
+                  and step_launches["segment_sum_rows"] == 0,
+                  f"{name}: the step's launches {step_launches}")
+            ref = restore(saved, gen())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref, m_ref = trainer.train_step(cfg, statics, ref, batches[0])
+            torch.cuda.synchronize()
+            ref_ms = 1e3 * (time.perf_counter() - t1)
+            zero_launches(wrappers)
+            got = dict(trainer.named_leaves(st.params))
+            want = dict(trainer.named_leaves(ref.params))
+            check(got.keys() == want.keys(), f"{name}: other leaves")
+            equal = all(torch.equal(got[k], want[k]) for k in want)
+            rels = {k: rel_norm(got[k], want[k]) for k in want}
+            worst = max(rels, key=rels.get)
+            check(rels[worst] <= step_rtol[name],
+                  f"{name}: {worst} differs from train_step's by "
+                  f"{rels[worst]}")
+            grads = {}
+            if name == "tile_parallel":
+                # the band path's gradients against the whole image's:
+                # Adam's first update divides each gradient by its size,
+                # which turns rounding-level gradients apart into moves
+                # apart, so the step's parameters say less
+                g_t, g_s = [trainer.compute_grads(
+                    cfg, statics, restore(saved, gen()), batch,
+                    rasterize_fn=rfn) for rfn in (
+                        tile_parallel.banded_rasterize_fn(hmesh.tile),
+                        None)]
+                zero_launches(wrappers)
+                grels = {k: rel_norm(g_t[3][k], g_s[3][k]) for k in g_s[3]}
+                grels["means2d"] = rel_norm(g_t[4], g_s[4])
+                gworst = max(grels, key=grels.get)
+                check(grels[gworst] <= GRADS_RTOL,
+                      f"{name}: the gradient of {gworst} differs from the "
+                      f"whole image's by {grels[gworst]}")
+                grads = {"grads_bit_equal": all(
+                    torch.equal(g_t[3][k], g_s[3][k]) for k in g_s[3]),
+                    "grads_worst_leaf": gworst,
+                    "grads_worst_rel_norm": grels[gworst]}
+                del g_t, g_s
+            vals = {k: float(v) for k, v in m.items()}
+            check(vals["nonfinite_params"] == 0
+                  and vals["isect_overflow"] == 0
+                  and vals["num_isects"] == float(m_ref["num_isects"]),
+                  f"{name}: metrics {vals}")
+            steps[name] = {
+                "params_bit_equal": equal, "worst_leaf": worst,
+                "worst_rel_norm": rels[worst],
+                "tolerance": step_rtol[name], **grads,
+                "loss": vals["loss"], "train_step_loss": float(
+                    m_ref["loss"]), "psnr": vals["psnr"],
+                "train_step_psnr": float(m_ref["psnr"]),
+                "num_isects": int(vals["num_isects"]),
+                "first_ms": round(ms[0], 3), "ms": round(ms[1], 3),
+                "train_step_ms": round(ref_ms, 3),
+                "launches": step_launches}
+            del st, ref, got, want
+
+        # ---- image 0 whole and in bands, no collective
+        st = restore(saved, gen())
+        merged, _ = trainer.collect_gaussians(
+            cfg, st.params, trainer.merge_statics(statics, st.aux),
+            st.masks, image0["camera_to_world"][:3, 3], st.step,
+            image0["frame_idx"], image0["normed_time"])
+        leaves = [x.detach() for x in (merged.means, merged.quats,
+                                       merged.scales, merged.opacities,
+                                       merged.rgbs)]
+        del st, merged
+        cam = (viewmat_from_c2w(image0["camera_to_world"]),
+               image0["intrinsics"])
+        rcfg = pipeline.RasterizeConfig(
+            near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+            radius_clip=cfg.radius_clip, antialiased=cfg.antialiased,
+            isect_capacity=cap)
+        whole = lambda *g: pipeline.rasterize(*g, *cam, WIDTH, HEIGHT, rcfg)
+        band = lambda b, nb, *g: tile_parallel.render_band(
+            *g, *cam, WIDTH, HEIGHT, rcfg, b, nb)
+        img_loss = lambda o: (o["rgb"] ** 2).sum() + o["alpha"].sum()
+        full = whole(*leaves)
+        full_isects = int(full["info"]["num_isects"])
+        full_fwd_ms = cuda_ms(lambda: whole(*leaves), 5)
+        g_leaves = [x.clone().requires_grad_() for x in leaves]
+        with torch.enable_grad():
+            full_loss = img_loss(whole(*g_leaves))
+            g_full = torch.autograd.grad(full_loss, g_leaves,
+                                         retain_graph=True)
+            full_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                full_loss, g_leaves, retain_graph=True), 3)
+        bands = {}
+        for nb in PARALLEL_BANDS:
+            # the stitch: every band's forward once, counters from 0
+            zero_launches(wrappers)
+            outs = [band(b, nb, *leaves) for b in range(nb)]
+            fwd_launches = zero_launches(wrappers)
+            rgb = torch.cat([o["rgb"] for o in outs])[:HEIGHT]
+            alpha = torch.cat([o["alpha"] for o in outs])[:HEIGHT]
+            isects = [int(o["info"]["num_isects"]) for o in outs]
+            rgb_err = float((rgb - full["rgb"]).abs().max())
+            alpha_err = float((alpha - full["alpha"]).abs().max())
+            check(rgb_err <= BAND_ATOL and alpha_err <= BAND_ATOL
+                  and sum(isects) == full_isects
+                  and not any(bool(o["info"]["overflow"]) for o in outs),
+                  f"{nb} bands: rgb {rgb_err}, alpha {alpha_err}, "
+                  f"isects {isects} of {full_isects}")
+            stitch_bit_equal = (torch.equal(rgb, full["rgb"])
+                                and torch.equal(alpha, full["alpha"]))
+            del outs, rgb, alpha
+            # each band's loss and gradients once, counters from 0, every
+            # kernel's arguments captured at the band's shapes
+            g_sum, band_kernels = None, []
+            zero_launches(wrappers)
+            for b in range(nb):
+                captured = {}
+                with torch.enable_grad(), pipeline_captured(captured):
+                    loss = img_loss(band(b, nb, *g_leaves))
+                    if not loss.requires_grad:
+                        continue      # a band wholly past the image
+                    g = torch.autograd.grad(loss, g_leaves)
+                g_sum = g if g_sum is None else [
+                    a + c for a, c in zip(g_sum, g)]
+                band_kernels.append(captured)
+                del loss, g
+            grad_launches = zero_launches(wrappers)
+            check(all(fwd_launches[k] >= 1 for k in RENDER_PATH)
+                  and all(grad_launches[k] >= 1 for k in TRAIN_PATH
+                          if k != "splat_grad"),
+                  f"{nb} bands: launches {fwd_launches}, {grad_launches}")
+            launched[f"bands_{nb}"] = {k: fwd_launches[k] + grad_launches[k]
+                                       for k in wrappers}
+            rels = [rel_norm(a, c) for a, c in zip(g_sum, g_full)]
+            check(max(rels) <= BAND_GRAD_RTOL,
+                  f"{nb} bands: gradients {rels}")
+            del g_sum
+            # every kernel of every band against its plain version on the
+            # arguments it was given there
+            kernel_errs = [path_kernels(f"band {b} of {nb}", captured, dev)
+                           for b, captured in enumerate(band_kernels)]
+            del band_kernels
+            fwd_ms = [cuda_ms(lambda: band(b, nb, *leaves), 5)
+                      for b in range(nb)]
+            bwd_ms = []
+            with torch.enable_grad():
+                for b in range(nb):
+                    loss = img_loss(band(b, nb, *g_leaves))
+                    if loss.requires_grad:
+                        bwd_ms.append(cuda_ms(lambda: torch.autograd.grad(
+                            loss, g_leaves, retain_graph=True), 3))
+                    del loss
+            zero_launches(wrappers)
+            bands[nb] = {"band_height": tile_parallel.band_height(
+                HEIGHT, nb), "num_isects": isects,
+                "rgb_max_abs_err": rgb_err, "alpha_max_abs_err": alpha_err,
+                "stitch_bit_equal": stitch_bit_equal,
+                "grad_rel_norm": dict(zip(
+                    ("means", "quats", "scales", "opacities", "colors"),
+                    rels)),
+                "kernels_vs_plain": kernel_errs,
+                "launches_forward": fwd_launches,
+                "launches_gradients": grad_launches,
+                "fwd_ms": [round(x, 4) for x in fwd_ms],
+                "bwd_ms": [round(x, 4) for x in bwd_ms]}
+        # a band whose Gaussians are all transparent: no entries at all
+        zero_launches(wrappers)
+        with torch.enable_grad():
+            clear = torch.zeros_like(leaves[3]).requires_grad_()
+            g_means = g_leaves[0]
+            out = tile_parallel.render_band(
+                g_means, *leaves[1:3], clear, leaves[4], *cam, WIDTH,
+                HEIGHT, rcfg, 0, 2)
+            g_clear = torch.autograd.grad(img_loss(out), [g_means, clear])
+        empty_launches = zero_launches(wrappers)
+        launched["empty_band"] = empty_launches
+        check(int(out["info"]["num_isects"]) == 0
+              and not bool(out["rgb"].any()) and not bool(out["alpha"].any())
+              and all(bool(torch.isfinite(g).all()) and not bool(g.any())
+                      for g in g_clear)
+              and all(empty_launches[k] >= 1 for k in TRAIN_PATH
+                      if k != "splat_grad"),
+              f"empty band: {int(out['info']['num_isects'])} entries, "
+              f"launches {empty_launches}")
+        del out, g_clear, g_leaves, leaves, g_full, full, saved
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the CLI: a plain run, --data_parallel -1 and one process of a
+    # multi-process run, side by side
+    t1 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_parallel")
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["--output_root", out, *CLI_PRESET_OVERRIDES]
+    run_clis(("train", "--run_name", "plain", *common),
+             ("train", "--project", "p", "--run_name", "dp",
+              "--data_parallel", "-1", *common),
+             ("train", "--project", "p", "--run_name", "mp",
+              "--coordinator", f"127.0.0.1:{free_port()}",
+              "--num_processes", "1", "--process_id", "0", *common))
+    summ, metrics = {}, {}
+    for name, rel in (("plain", "plain"), ("dp", "p/dp"), ("mp", "p/mp")):
+        with open(os.path.join(out, rel, "train_summary.json")) as f:
+            summ[name] = json.load(f)
+        with open(os.path.join(out, rel, "metrics.json")) as f:
+            metrics[name] = [json.loads(x) for x in f if x.strip()]
+    check(metrics["dp"] == metrics["plain"] and metrics["plain"],
+          "the --data_parallel -1 run's metrics.json differs from the "
+          "plain run's")
+    check(summ["dp"]["parallel"] == {"ranks": 1, "rank": 0, "data": 1,
+                                     "tile": 1, "backend": "nccl"}
+          and summ["mp"]["steps"] == CLI_PRESET_STEPS
+          and all(s["nonfinite_params_max"] == 0 for s in summ.values()),
+          f"parallel CLI runs: {[s['parallel'] for s in summ.values()]}")
+    cli_launches = summ["dp"]["launches"]
+    check(all(cli_launches[k] >= CLI_PRESET_STEPS for k in TRAIN_PATH),
+          f"the --data_parallel run's launches {cli_launches}")
+    phase("parallel", t0, backend=backend,
+          nccl_version=".".join(map(str, torch.cuda.nccl.version())),
+          isect_capacity=cap, steps=steps,
+          tolerance={"steps": f"bit-equal or {PARALLEL_STEP_RTOL} relative "
+                              "norm per leaf",
+                     "bands": f"rgb, alpha atol {BAND_ATOL}, num_isects "
+                              f"equal, gradients {BAND_GRAD_RTOL} relative "
+                              "norm"},
+          whole_image={"num_isects": full_isects,
+                       "fwd_ms": round(full_fwd_ms, 4),
+              "bwd_ms": round(full_bwd_ms, 4)},
+          bands=bands, empty_band_launches=empty_launches,
+          cli={name: {k: s[k] for k in (
+              "steps", "steps_per_s_after_warmup", "peak_mem_bytes",
+              "parallel", "launches")} for name, s in summ.items()},
+          cli_metrics_equal=True, cli_s=round(time.perf_counter() - t1, 2),
+          device=str(dev), nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
+    launched["cli_data_parallel"] = cli_launches
+    return launched
+
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that is free now."""
     import socket
@@ -3289,6 +3665,12 @@ def main() -> int:
         k["launches_option_variants"] = {
             name: {"train": launched[k["name"]], "steps": 1}
             for name, launched in opt_launches.items()}
+    par_launches = parallel_phase(args, dev, scene_rng, batches)
+    for k in kernels:
+        k["launches_parallel"] = {
+            path: launched[k["name"]]
+            for path, launched in par_launches.items()}
+        k["launches_parallel"]["cli_steps"] = CLI_PRESET_STEPS
     del scene_rng, batches
     lpips_weights = lpips_phase(dev, renders)
     del renders
