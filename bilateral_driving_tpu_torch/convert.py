@@ -147,3 +147,20 @@ def synthetic_scene_from_jax(scene, device="cuda") -> synthetic.SyntheticScene:
         t(scene.bg_means), t(scene.bg_colors), {"RigidNodes": car},
         t(scene.cameras), t(scene.K), int(scene.width), int(scene.height),
         int(scene.num_frames), 1)
+
+
+def segformer_params_from_hf(state) -> dict:
+    """transformers' SegformerForSemanticSegmentation state dict, its
+    leaves as numpy arrays, as the state dict of the port's
+    models/segformer.SegformerForSemanticSegmentation: the port keeps
+    transformers' parameter names (segformer.encoder.*, decode_head.*,
+    with the batch norm's running statistics), so each leaf becomes a
+    tensor under its own name. A name outside those two trees (another
+    head, an older naming) raises."""
+    out = {}
+    for name, leaf in state.items():
+        if not name.startswith(("segformer.encoder.", "decode_head.")):
+            raise ValueError(f"{name}: not a parameter of "
+                             "SegformerForSemanticSegmentation")
+        out[name] = torch.from_numpy(np.array(leaf))
+    return out

@@ -34,9 +34,14 @@ def knn_mean_distance(points: torch.Tensor, k: int = 3, chunk: int = 1024,
     """(N,) mean distance of each point to its k nearest neighbours (the
     nearest of k + 1 candidates, the point itself, dropped). `topk` runs
     over one reference block plus the running k + 1 best, never over the
-    whole set."""
+    whole set. With k or fewer reference points the mean is over the
+    others (one point: 0), where the JAX package's is inf: a class of three
+    lidar points, e.g. a far bicycle, would start with infinite scales."""
     n = points.shape[0]
     ref = points[::-(-n // max_reference)] if n > max_reference else points
+    k = min(k, ref.shape[0] - 1)
+    if k < 1:
+        return torch.zeros(n, dtype=points.dtype, device=points.device)
     blocks = []
     for lo in range(0, ref.shape[0], ref_block):
         rb = ref[lo:lo + ref_block]

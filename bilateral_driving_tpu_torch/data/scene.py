@@ -25,6 +25,7 @@ come from `humanpose/smpl.pkl` (`load_smpl_poses`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 import math
@@ -317,10 +318,13 @@ class PixelSource:
 _PRECISION_BITS = 32 - 8 - 2     # PIL's fixed-point bits (Resample.c)
 
 
+@functools.lru_cache(maxsize=32)
 def _bilinear_coeffs(in_size: int, out_size: int):
     """PIL's precompute_coeffs for its triangle filter (support 1, widened
     by the scale when shrinking) and normalize_coeffs_8bpc: per output
-    pixel the first input index and fixed-point weights (out, ksize)."""
+    pixel the first input index and fixed-point weights (out, ksize).
+    Cached per pair of sizes (a Python loop over the output pixels); read
+    only."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
@@ -343,22 +347,30 @@ def _bilinear_coeffs(in_size: int, out_size: int):
     return xmins, kk
 
 
-def _bilinear_pass(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One separable pass of PIL's 8-bit resampling along `axis`: fixed-
-    point sums rounded by half a unit, clipped to [0, 255]."""
-    xmins, kk = _bilinear_coeffs(a.shape[axis], out_size)
-    src = np.moveaxis(a, axis, 0).astype(np.int64)
-    idx = np.minimum(xmins[:, None] + np.arange(kk.shape[1])[None],
-                     a.shape[axis] - 1)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
-                  np.int64)
+def _bilinear_pass(x: torch.Tensor, out_size: int,
+                   axis: int) -> torch.Tensor:
+    """One separable pass of PIL's 8-bit resampling along `axis` of a
+    uint8 tensor, on its device: fixed-point sums in int32 as PIL's (a
+    row's weights add to about 2^22, so a sum stays below
+    255 * 2^22 + 2^21 < 2^31), rounded by half a unit, clipped to
+    [0, 255]. Integer sums: the same bits on every device."""
+    xmins, kk = _bilinear_coeffs(x.shape[axis], out_size)
+    idx = torch.as_tensor(np.minimum(
+        xmins[:, None] + np.arange(kk.shape[1])[None], x.shape[axis] - 1),
+        device=x.device)
+    w = torch.as_tensor(kk, dtype=torch.int32, device=x.device)
+    src = x.movedim(axis, 0).to(torch.int32)
+    shape = (out_size,) + (1,) * (src.dim() - 1)
+    acc = torch.full((out_size,) + tuple(src.shape[1:]),
+                     1 << (_PRECISION_BITS - 1), dtype=torch.int32,
+                     device=x.device)
     for j in range(kk.shape[1]):
-        w = kk[:, j].reshape((out_size,) + (1,) * (src.ndim - 1))
-        acc += src[idx[:, j]] * w
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+        acc += src[idx[:, j]] * w[:, j].reshape(shape)
+    out = torch.clamp(acc >> _PRECISION_BITS, 0, 255).to(torch.uint8)
+    return out.movedim(0, axis)
 
 
+@functools.lru_cache(maxsize=32)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """PIL's nearest-neighbour scaling (ImagingScaleAffine): the source
     coordinate starts at half a step and adds the step per pixel, in
@@ -372,21 +384,26 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return out
 
 
-def resize(a: np.ndarray, size, nearest: bool) -> np.ndarray:
+def resize(a, size, nearest: bool):
     """Resize a uint8 (H, W) or (H, W, C) image to size (W, H) as PIL's
     Image.resize does with NEAREST or BILINEAR, without PIL: bilinear is
     PIL's separable triangle filter (support widened by the scale when
     shrinking, horizontal pass first, 22-bit fixed-point weights, each pass
-    rounded to uint8), nearest its truncated half-step sampling. The
-    identity (a copy) when the size already matches."""
+    rounded to uint8), nearest its truncated half-step sampling. A numpy
+    array gives a numpy array (resized on the CPU); a tensor gives a
+    tensor, resized on its device (preprocess/masks.py's image processor
+    on the card). The identity (a copy) when the size already matches."""
+    if isinstance(a, np.ndarray):
+        return resize(torch.from_numpy(np.array(a)), size, nearest).numpy()
     w, h = size
     if a.shape[1] == w and a.shape[0] == h:
-        return a.copy()
-    if a.dtype != np.uint8:
+        return a.clone()
+    if a.dtype != torch.uint8:
         raise TypeError(f"resize takes uint8 images, not {a.dtype}")
     if nearest:
-        return a[_nearest_index(a.shape[0], h)][:, _nearest_index(
-            a.shape[1], w)]
+        rows, cols = (torch.as_tensor(_nearest_index(n, m), device=a.device)
+                      for n, m in ((a.shape[0], h), (a.shape[1], w)))
+        return a[rows][:, cols]
     out = a
     if a.shape[1] != w:
         out = _bilinear_pass(out, w, axis=1)
@@ -827,14 +844,26 @@ def get_init_background(data: SceneData, num_samples: int = 800_000,
         if data.instances is not None:
             keep = np.ones(all_pts.shape[0], bool)
             inst = data.instances
-            # filter points inside any instance box at any frame
+            # filter points inside any instance box at any frame; each box
+            # tests only the points whose x and y lie within its half
+            # diagonal (plus 1 cm) of its centre's, the only ones that can
+            # lie inside it
+            order = np.argsort(all_pts[:, 0], kind="stable")
+            xs = all_pts[order, 0].astype(np.float64)
             for f in range(data.num_frames):
                 for i in range(len(inst.ids)):
                     if not inst.frame_valid[f, i]:
                         continue
+                    reach = np.linalg.norm(inst.sizes[i]) / 2.0 + 0.01
+                    cx = inst.poses[f, i, 0, 3]
+                    near = order[np.searchsorted(xs, cx - reach):
+                                 np.searchsorted(xs, cx + reach, "right")]
+                    near = near[np.abs(all_pts[near, 1]
+                                       - inst.poses[f, i, 1, 3]) < reach]
                     w2o = np.linalg.inv(inst.poses[f, i])
-                    local = all_pts @ w2o[:3, :3].T + w2o[:3, 3]
-                    keep &= ~(np.abs(local) < inst.sizes[i] / 2.0).all(-1)
+                    local = all_pts[near] @ w2o[:3, :3].T + w2o[:3, 3]
+                    keep[near] &= ~(np.abs(local) < inst.sizes[i] / 2.0
+                                    ).all(-1)
             all_pts, all_t = all_pts[keep], all_t[keep]
         if all_pts.shape[0] > num_samples:
             sel = rng.choice(all_pts.shape[0], num_samples, replace=False)

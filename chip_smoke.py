@@ -171,7 +171,8 @@ Phases, each printed on its own line with its result and elapsed seconds:
             three CLI runs on the fixture side by side: plain,
             `--data_parallel -1 --project p` (metrics.json equal to the plain
             run's) and `--coordinator --num_processes 1 --process_id 0
-            --project p`
+            --project p`, 5 steps each with cli_presets' overrides (20
+            before the preprocess phase came: a cut of depth for time)
   lpips     LPIPS (eval/lpips.py) with weights drawn from a seed and
             written in tools/export_lpips_weights.py's layout: two sky
             variants' 533 x 300 test views and their target on the card
@@ -191,9 +192,13 @@ Phases, each printed on its own line with its result and elapsed seconds:
             non-finite parameters
   cli_presets  the CLI with each other preset this port added
             (omnire_extended_cam, the neural, multi-scale neural and CP-4D
-            grids, omnire_ms_bilateral_extended, pvg, deformablegs): 20
-            steps of the fixture, a resume from step 11, tools.eval, the
-            seven side by side
+            grids, omnire_ms_bilateral_extended, pvg, deformablegs): 5
+            steps of the fixture, the seven side by side, the test PSNR
+            of each run's own evaluation; then a resume of each from step
+            3 beside tools.eval --max_images 1 of each (the first test and
+            the first image of the full split from its last checkpoint,
+            finite metrics); 20 steps and a whole evaluation of each
+            before the preprocess phase came (a cut of depth for time)
   cli_synthetic  tools.train --config synthetic at the YAML's full size
             for its 200 steps with the live viewer on (a frame and the
             stats fetched while training is paused), a resume from the
@@ -201,13 +206,38 @@ Phases, each printed on its own line with its result and elapsed seconds:
             200, the TensorBoard event file read back, the source backup,
             the final background exported as a ply
   cli_downscale  tools.train on proto_scene with data.downscale=2 (the
-            port's resize at load, PIL blocked) for 20 steps, side by
-            side with cli_synthetic's resume
+            port's resize at load, PIL blocked) for 5 steps with
+            cli_presets' overrides (20 before the preprocess phase came: a
+            cut of depth for time), side by side with cli_synthetic's
+            resume
+  preprocess  offline preprocessing from a raw log to a trained scene:
+            tools/raw_scene.py writes a nuScenes v1.0-mini log from the
+            seed at the published sensor sizes (6 cameras at 1600 x 900,
+            34,720-point lidar sweeps, 3 keyframes, 36 annotations a
+            keyframe); preprocess.cli converts it with --device cuda and
+            with --device cpu side by side (images, calib, lidar, the
+            dynamic masks filled on the device, objects, ego-mask
+            placeholders), the tracker outputs of tools/raw_scene.py are
+            matched into smpl.pkl on both trees, SegFormer-b5 (random
+            weights at the published widths, drawn as transformers draws
+            them, from a checkpoint directory the port writes and reads)
+            writes the cuda tree's sky masks; every file of the cpu tree
+            equal to the cuda tree's, smpl.pkl with every pedestrian;
+            once the cpu conversion has ended, SegFormer on one image in
+            float32 and float64 (TF32 off): the logits' relative error
+            (within 1e-5, which a TF32 matmul would exceed), the share of
+            pixels whose class differs (each a near-tie), ms per image and
+            the peak memory; then, with nothing else running,
+            tools.train with omnire_ms_bilateral, SMPL on and the
+            nuscenes/3cams rig on the converted scene for 20 steps (no
+            non-finite parameter, every train-path kernel launched each
+            step, a finite test PSNR); stage seconds, steps/s and peaks
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
 omnire_bilateral, omnire, background_variants, option_variants, parallel,
-cli_yaml, render_cli, cli_synthetic and cli_downscale paths), the card's name and power limit as
+cli_yaml, render_cli, cli_synthetic, cli_downscale and preprocess paths),
+the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
 a run without CUDA or outside a checkout of the repository.
@@ -312,20 +342,25 @@ CLI_OMNIRE_OVERRIDES = [o for o in CLI_SMPL_OVERRIDES
                         if not o.startswith("logging.ckpt_every")] + [
     "logging.ckpt_every=50"]
 # the other presets through the CLI on the fixture: each trains
-# CLI_PRESET_STEPS steps, resumes from its step-CLI_PRESET_RESUME
-# checkpoint and is evaluated, the seven runs side by side (no steps/s from
-# them), with 262,144 background slots (checkpoints of a fifth the size;
-# cli and cli_omnire run the flagship widths)
+# CLI_PRESET_STEPS steps and resumes from its step-CLI_PRESET_RESUME
+# checkpoint, the seven runs side by side (no steps/s from them), with
+# 262,144 background slots (checkpoints of a fifth the size; cli and
+# cli_omnire run the flagship widths). Each run refines and crosses the
+# resolution schedule. Since the preprocess phase came, 5 steps and
+# tools.eval of one image a split (beside the resumes) keep chip_smoke
+# within its time: 20 steps, a resume and a whole evaluation of each took
+# 213 s of a run's 871 s; 5 steps with whole evaluations beside the
+# resumes 103-167 s
 CLI_PRESETS = ("omnire_extended_cam", "omnire_neuralbilateral",
                "omnire_ms_neuralbilateral", "omnire_cp4d",
                "omnire_ms_bilateral_extended", "pvg", "deformablegs")
-CLI_PRESET_STEPS, CLI_PRESET_RESUME = 20, 11
+CLI_PRESET_STEPS, CLI_PRESET_RESUME = 5, 3
 CLI_PRESET_OVERRIDES = [
     o for o in CLI_SMPL_OVERRIDES if not o.startswith(
         ("trainer.max_steps", "res_schedule", "density", "logging"))] + [
-    f"trainer.max_steps={CLI_PRESET_STEPS}", "logging.ckpt_every=10",
-    "logging.log_every=10", "density.warmup_steps=5",
-    "density.refine_interval=10", "res_schedule.double_steps=10",
+    f"trainer.max_steps={CLI_PRESET_STEPS}", "logging.ckpt_every=2",
+    "logging.log_every=2", "density.warmup_steps=2",
+    "density.refine_interval=2", "res_schedule.double_steps=2",
     "res_schedule.downscale_times=1", "background_init.capacity=262144"]
 # the splat relaunched on one input, every launch bit-equal to the first:
 # the train phase's captured input (R=1024) and one shaped like the SMPL
@@ -350,7 +385,7 @@ BACKGROUND_TIMED_STEPS = 3
 SYNTH_STEPS, SYNTH_RESUME, SYNTH_HW = 200, 101, (96, 128)
 SYNTH_VIEW_STEP, SYNTH_PLY_ALPHA = 20, 0.05
 # proto_scene (96 x 64) loaded at half size by the port's resize with PIL
-# blocked, the presets' 20 steps
+# blocked, the presets' 5 steps
 DOWNSCALE_OVERRIDES = [o for o in CLI_PRESET_OVERRIDES
                        if not o.startswith("data.downscale")] + [
     "data.downscale=2"]
@@ -384,6 +419,26 @@ LPIPS_RTOL, LPIPS_REPEATS = 1e-4, 5
 # resume from checkpoint_CLI_YAML_RESUME bit-equal at the last step, eval
 # with LPIPS weights
 CLI_YAML_STEPS, CLI_YAML_RESUME = 50, 26
+# the preprocess phase: tools/raw_scene.py's nuScenes log at the published
+# sensor sizes (6 cameras at 1600 x 900, 34,720-point lidar sweeps, 3
+# keyframes: 11 frames), converted by preprocess.cli with --device cuda and
+# --device cpu side by side (PRE_KEYS, the ego-mask placeholders, then
+# humanpose on both, sky_masks on the card with SegFormer-b5 at the
+# published widths and random weights); SegFormer on one image in float32
+# and float64 (logits within PRE_LOGIT_RTOL of the largest: ten times or
+# less what the card reads, 3.17e-6, where TF32's 10-bit mantissa would
+# give about 1e-3), timed over PRE_SEG_REPEATS images with nothing else
+# running; the cuda tree trained PRE_TRAIN_STEPS steps by
+# tools.train with omnire_ms_bilateral, SMPL on (the converted smpl.pkl,
+# the synthetic body) and the nuscenes/3cams rig (533 x 300, test stride
+# 10)
+PRE_KEYS = ("images", "calib", "lidar", "dynamic_masks", "objects")
+PRE_LOGIT_RTOL, PRE_SEG_REPEATS = 1e-5, 5
+PRE_TRAIN_STEPS = 20
+PRE_TRAIN_OVERRIDES = [
+    "dataset=nuscenes/3cams", "trainer.use_smpl=true",
+    "smpl.model_path=synthetic", f"trainer.max_steps={PRE_TRAIN_STEPS}",
+    "logging.ckpt_every=1000000", "logging.log_every=10"]
 # the parallel phase, on one card: NCCL at world size 1; a data-parallel
 # step of omnire_bilateral's state at step TRAIN_STEP0 against train_step
 # (bit-equal, else within PARALLEL_STEP_RTOL per leaf), a tile step (its
@@ -391,7 +446,7 @@ CLI_YAML_STEPS, CLI_YAML_RESUME = 50, 26
 # image 0 as PARALLEL_BANDS bands through the per-band function, stitched
 # within BAND_ATOL of the full render, the band-summed gradients within
 # BAND_GRAD_RTOL; the CLI's parallel flags on the fixture for
-# CLI_PRESET_STEPS steps beside a plain run
+# CLI_PRESET_STEPS steps (cut with cli_presets' depth) beside a plain run
 PARALLEL_BANDS = (2, 4)
 BAND_ATOL, BAND_GRAD_RTOL, PARALLEL_STEP_RTOL = 1e-4, 1e-4, 1e-6
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
@@ -2559,10 +2614,13 @@ def cli_omnire(dev):
 
 
 def cli_presets(dev):
-    """The cli_presets phase: tools.train for each of CLI_PRESETS, a
-    resume from its step-CLI_PRESET_RESUME checkpoint and tools.eval, the
-    presets side by side; per preset its guards, launches, resumed steps
-    and test PSNR. The run directories go to
+    """The cli_presets phase: tools.train for each of CLI_PRESETS side by
+    side, then each one's resume from its step-CLI_PRESET_RESUME
+    checkpoint beside tools.eval --max_images 1 of each run (its last
+    checkpoint restored, one test and one full-split image rendered);
+    per preset its guards, launches, resumed steps, test PSNR (the
+    training run's own evaluation of the test split, test_metrics.json)
+    and the evaluation's finite metrics. The run directories go to
     work_dirs/chip_smoke_cli_presets and are removed after."""
     t0 = time.perf_counter()
     out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli_presets")
@@ -2578,9 +2636,9 @@ def cli_presets(dev):
                 f"{p}_resume", "--resume_from", os.path.join(
                     out, p, "checkpoints",
                     f"checkpoint_{CLI_PRESET_RESUME}.pt"),
-                *CLI_PRESET_OVERRIDES) for p in CLI_PRESETS])
-    run_clis(*[("eval", "--log_dir", os.path.join(out, p))
-               for p in CLI_PRESETS])
+                *CLI_PRESET_OVERRIDES) for p in CLI_PRESETS],
+             *[("eval", "--log_dir", os.path.join(out, p), "--max_images",
+                "1") for p in CLI_PRESETS])
     runs = {}
     for p in CLI_PRESETS:
         summ, resumed = summary(p), summary(f"{p}_resume")
@@ -2595,16 +2653,25 @@ def cli_presets(dev):
               and (resumed["start_step"], resumed["end_step"])
               == (CLI_PRESET_RESUME, CLI_PRESET_STEPS),
               f"{p}: guards or resume {summ} {resumed}")
-        with open(os.path.join(out, p, "metrics_test.json")) as f:
+        with open(os.path.join(out, p, "test_metrics.json")) as f:
             psnr = json.load(f)["psnr"]
         check(math.isfinite(psnr), f"{p}: test PSNR {psnr}")
+        evaluated = {}
+        for split in ("test", "full"):
+            with open(os.path.join(out, p, f"metrics_{split}.json")) as f:
+                evaluated[split] = {k: v for k, v in json.load(f).items()
+                                    if isinstance(v, float)}
+            check(evaluated[split] and all(
+                math.isfinite(v) for v in evaluated[split].values()),
+                  f"{p}: tools.eval metrics_{split}.json {evaluated[split]}")
         runs[p] = {"steps": summ["steps"], "launches": launched,
                    "refines": len(summ["refines"]),
                    "final_points": summ["final_points"],
                    "resumed_steps": [resumed["start_step"],
                                      resumed["end_step"]],
                    "nonfinite_params": summ["nonfinite_params_max"],
-                   "test_psnr": psnr}
+                   "test_psnr": psnr,
+                   "eval_psnr": {k: v["psnr"] for k, v in evaluated.items()}}
     phase("cli_presets", t0, runs=runs,
           side_by_side="the presets ran at once: no steps/s from them",
           device=str(dev), nvidia_smi=nvidia_smi())
@@ -2633,7 +2700,10 @@ def parallel_phase(args, dev, scene_rng, batches) -> dict:
     one, `--data_parallel -1 --project p` (world size 1 on the card,
     metrics.json equal to the plain run's) and `--coordinator
     --num_processes 1 --process_id 0 --project p` (writes
-    <root>/p/<run>). Every count is set to 0 when the phase starts.
+    <root>/p/<run>), CLI_PRESET_STEPS (5) steps each with cli_presets'
+    overrides: 20 before the preprocess phase came, cut with cli_presets'
+    depth to keep chip_smoke within its time. Every count is set to 0
+    when the phase starts.
     Returns each path's launches, read just after one run of it: the
     data step's and the tile step's (one step each), each band count's
     (every band's forward once, then every band's loss and gradients
@@ -3148,8 +3218,9 @@ def cli_downscale(dev, out: str):
     """The cli_downscale phase: the run cli_synthetic started beside its
     resume under <out>/half, tools.train on proto_scene with
     data.downscale=2 and PIL blocked (the port's resize at load), the
-    presets' 20 steps: the images at half size, the test PSNR finite.
-    Returns its launches."""
+    presets' 5 steps (20 before the preprocess phase came, cut with
+    cli_presets' depth to keep chip_smoke within its time): the images at
+    half size, the test PSNR finite. Returns its launches."""
     t0 = time.perf_counter()
     with open(os.path.join(out, "half", "train_summary.json")) as f:
         summ = json.load(f)
@@ -3277,6 +3348,299 @@ def cli(dev):
     render_launches = render_cli(dev, run_dir)
     shutil.rmtree(out)
     return render_launches
+
+
+def start_port(started: list, module: str, *argv):
+    """Start `python -m bilateral_driving_tpu_torch.<module> *argv` with
+    PIL importable (the preprocessing decodes and writes JPEG and PNG
+    files), its output in a temporary file, and add it to `started`;
+    finish_port waits for it."""
+    log = tempfile.TemporaryFile("w+")
+    started.append((module, log, subprocess.Popen(
+        [sys.executable, "-m", f"bilateral_driving_tpu_torch.{module}",
+         *argv], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
+    return started[-1]
+
+
+def finish_port(module: str, log, proc) -> str:
+    """Wait for a start_port process; its output, or raise with its end."""
+    proc.wait()
+    log.seek(0)
+    text = log.read()
+    if proc.returncode != 0:
+        raise SmokeError(f"{module} exited {proc.returncode}:\n"
+                         f"{text[-3000:]}")
+    return text
+
+
+def preprocess_cli(*argv) -> dict:
+    """preprocess.cli in this process; its stage seconds."""
+    import io
+
+    from bilateral_driving_tpu_torch.preprocess import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    return stage_seconds(buf.getvalue())
+
+
+def stage_seconds(log: str) -> dict:
+    """The `stage <name>: <s> s` lines of a preprocess.cli run."""
+    out = {}
+    for line in log.splitlines():
+        if line.startswith("stage ") and line.endswith(" s"):
+            name, sec = line[len("stage "):-2].split(": ")
+            out[name] = float(sec)
+    return out
+
+
+def same_trees(a: str, b: str, skip=()) -> int:
+    """Raise unless every file under `a` (outside the `skip` directories)
+    equals its counterpart under `b` and `b` has no other: byte for byte,
+    JSON as parsed, pickles (smpl.pkl) bit for bit. Returns the count."""
+    import pickle
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs
+                      if os.path.relpath(d, root).split(os.sep)[0]
+                      not in skip)
+
+    names = files(a)
+    check(names == files(b), f"the trees' files differ: "
+          f"{sorted(set(names) ^ set(files(b)))[:10]}")
+    for rel in names:
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            da, db = fa.read(), fb.read()
+        if rel.endswith(".json"):
+            check(json.loads(da) == json.loads(db), f"{rel} differs")
+        elif rel.endswith(".pkl"):
+            bit_equal(pickle.loads(da), pickle.loads(db), rel)
+        else:
+            check(da == db, f"{rel} differs")
+    return len(names)
+
+
+def segformer_check(ckpt: str, image_path: str, dev) -> dict:
+    """SegFormer from the checkpoint directory on one image: float32
+    against float64 (the logits' error relative to the largest float64
+    logit; the pixels whose upsampled argmax differs, each of which must
+    be a near-tie: its two best float64 classes at most twice the largest
+    upsampled difference apart), the image processor's output on the
+    card equal to the CPU's and the least ms of each over PRE_SEG_REPEATS
+    runs, segment_image's ms per image over PRE_SEG_REPEATS runs (CUDA
+    events), the process's peak memory over the float32
+    forward and that peak less what was allocated before it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from bilateral_driving_tpu_torch.preprocess import masks
+
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32), "TF32 is on")
+    model, proc = masks.load_segmenter(ckpt, device=dev)
+    img = np.asarray(Image.open(image_path).convert("RGB"))
+    x = proc(img, dev)
+    # the image processor (data/scene.resize, rescale, normalise) on the
+    # card and on the CPU: the same bits, and the time of each
+    check(torch.equal(x.cpu(), proc(img, "cpu")),
+          "the image processor differs between the card and the CPU")
+    proc_ms = {}
+    for where in (dev, "cpu"):
+        times = []
+        for _ in range(PRE_SEG_REPEATS):
+            t1 = time.perf_counter()
+            proc(img, where)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        proc_ms[str(where)] = min(times)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        l32 = model(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    masks.segment_image(model, proc, img)
+    ms = cuda_ms(lambda: masks.segment_image(model, proc, img),
+                 PRE_SEG_REPEATS)
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        l64 = model64(x.double())
+    del model64
+    rel = float((l32.double() - l64).abs().max() / l64.abs().max())
+    up32, up64 = (torch.nn.functional.interpolate(
+        lg, size=img.shape[:2], mode="bilinear", align_corners=False)[0]
+        for lg in (l32.double(), l64))
+    err = float((up32 - up64).abs().max())
+    differ = up32.argmax(0) != up64.argmax(0)
+    top2 = up64[:, differ].topk(2, dim=0).values
+    gaps = (top2[0] - top2[1]) if int(differ.sum()) else top2.new_zeros(1)
+    check(rel <= PRE_LOGIT_RTOL, f"SegFormer float32 logits {rel} from "
+          "float64 relative")
+    check(bool((gaps <= 2 * err).all()), "a pixel's class differs between "
+          "float32 and float64 where its two best classes are apart")
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "input_hw": list(x.shape[2:]), "logits_hw": list(l32.shape[2:]),
+            "logits_rel_err_f32_vs_f64": rel,
+            "upsampled_max_abs_err": err,
+            "pixels_class_differs_share": float(differ.float().mean()),
+            "largest_gap_where_differs": float(gaps.max()),
+            "tolerance": f"logits {PRE_LOGIT_RTOL} relative; a differing "
+                         "class only where its float64 top two are within "
+                         "twice the largest upsampled difference",
+            "ms_per_image": ms,
+            "processor_equal_cuda_cpu": True,
+            "processor_min_ms": proc_ms,
+            "peak_mem_bytes": peak,
+            "forward_peak_above_allocated_bytes": peak - base,
+            "weights_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters())}
+
+
+def preprocess_phase(dev, seed: int) -> dict:
+    """The preprocess phase (module docstring). The log, the two trees,
+    the checkpoint and the run directory go to
+    work_dirs/chip_smoke_preprocess and are removed after. Returns the
+    training run's launches. Every process it starts has ended when it
+    returns or raises."""
+    started = []
+    try:
+        return _preprocess(dev, seed, started)
+    finally:
+        for _, log, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _preprocess(dev, seed: int, started: list) -> dict:
+    import torch
+
+    from bilateral_driving_tpu_torch.models import segformer
+    from bilateral_driving_tpu_torch.preprocess import masks
+    from bilateral_driving_tpu_torch.tools import raw_scene
+
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "work_dirs", "chip_smoke_preprocess")
+    shutil.rmtree(out, ignore_errors=True)
+    raw = raw_scene.write_raw_log(os.path.join(out, "raw"), seed)
+    seconds = {"raw_log": time.perf_counter() - t0}
+    trees = {d: os.path.join(out, d) for d in ("cuda", "cpu")}
+    scenes = {d: os.path.join(t, "000") for d, t in trees.items()}
+    common = ["--dataset", "nuscenes", "--data_root", raw]
+    # the cpu tree's conversion in a process of its own, beside the cuda
+    # tree's stages in this one
+    cpu_run = start_port(started, "preprocess.cli", *common, "--target_dir",
+                         trees["cpu"], "--device", "cpu", "--process_keys",
+                         *PRE_KEYS)
+    t1 = time.perf_counter()
+    stages = {"cuda": preprocess_cli(*common, "--target_dir", trees["cuda"],
+                                     "--device", "cuda", "--process_keys",
+                                     *PRE_KEYS)}
+    seconds["convert_cuda"] = time.perf_counter() - t1
+    # the tracker outputs, then a SegFormer-b5 checkpoint of random weights
+    t1 = time.perf_counter()
+    trackers = raw_scene.write_humanpose(scenes["cuda"], seed)
+    cfg = segformer.SegformerConfig(**segformer.B5_CITYSCAPES)
+    with torch.device(dev):
+        net = segformer.SegformerForSemanticSegmentation(cfg)
+    segformer.init_weights(net, torch.Generator(device=dev).manual_seed(seed))
+    ckpt = masks.write_checkpoint(
+        os.path.join(out, "segformer_b5"), cfg, net,
+        masks.ImageProcessor(size=segformer.B5_INPUT_HW))
+    del net
+    seconds["trackers_and_checkpoint"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    stages["cuda"].update(preprocess_cli(
+        *common, "--target_dir", trees["cuda"], "--device", "cuda",
+        "--process_keys", "sky_masks", "humanpose", "--checkpoint", ckpt))
+    seconds["sky_and_humanpose_cuda"] = time.perf_counter() - t1
+    images = sorted(os.listdir(os.path.join(scenes["cuda"], "images")))
+    # the cpu tree: its conversion's end, then its tracks matched; the
+    # trees held against each other
+    t1 = time.perf_counter()
+    stages["cpu"] = stage_seconds(finish_port(*cpu_run))
+    seconds["convert_cpu_waited"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    os.makedirs(os.path.join(scenes["cpu"], "humanpose"))
+    for path in trackers.values():
+        shutil.copy(path, os.path.join(scenes["cpu"], "humanpose"))
+    stages["cpu"].update(preprocess_cli(
+        *common, "--target_dir", trees["cpu"], "--device", "cpu",
+        "--process_keys", "humanpose"))
+    check(set(stages["cuda"]) == {"convert", "ego_masks", "sky_masks",
+                                  "humanpose"}
+          and set(stages["cpu"]) == {"convert", "ego_masks", "humanpose"},
+          f"stages {stages}")
+    n_files = same_trees(scenes["cpu"], scenes["cuda"], skip=("sky_masks",))
+    n_frames, n_cams = 11, len(raw_scene.CAMERA_RIG)
+    check(len(images) == n_frames * n_cams and sorted(os.listdir(
+        os.path.join(scenes["cuda"], "sky_masks"))) == [
+            f.replace(".jpg", ".png") for f in images],
+          "not one sky mask per image")
+    import pickle
+
+    with open(os.path.join(scenes["cuda"], "humanpose", "smpl.pkl"),
+              "rb") as f:
+        smpl = pickle.load(f)
+    with open(os.path.join(scenes["cuda"], "instances",
+                           "instances_info.json")) as f:
+        info = json.load(f)
+    walkers = [k for k, v in info.items()
+               if v["class_name"].startswith("human.pedestrian")]
+    check(len(info) == raw_scene.ANNOTATIONS
+          and sorted(smpl) == sorted(int(k) for k in walkers)
+          and all(v["valid_mask"].any() for v in smpl.values()),
+          f"smpl.pkl holds {sorted(smpl)}, the pedestrians are {walkers}")
+    seconds["cpu_tracks_and_compare"] = time.perf_counter() - t1
+    # with nothing else running: SegFormer's check and timing, then the
+    # converted scene trained through the CLI in a process of its own
+    seg = segformer_check(ckpt, os.path.join(scenes["cuda"], "images",
+                                             images[0]), dev)
+    t_train = time.perf_counter()
+    train_log = finish_port(*start_port(
+        started, "tools.train", "--config", "omnire_ms_bilateral",
+        "--output_root", out, "--run_name", "train",
+        f"data.scene_dir={scenes['cuda']}", *PRE_TRAIN_OVERRIDES))
+    seconds["train"] = time.perf_counter() - t_train
+    built = [line.split("built in ")[-1] for line in train_log.splitlines()
+             if "built in " in line]
+    run_dir = os.path.join(out, "train")
+    with open(os.path.join(run_dir, "train_summary.json")) as f:
+        summ = json.load(f)
+    with open(os.path.join(run_dir, "test_metrics.json")) as f:
+        test = json.load(f)
+    launched = summ["launches"]
+    check(summ["steps"] == PRE_TRAIN_STEPS
+          and launched["segment_sum_rows"] == 0
+          and all(launched[k] >= PRE_TRAIN_STEPS for k in TRAIN_PATH),
+          f"{summ['steps']} steps, launches {launched}")
+    check(summ["nonfinite_params_max"] == 0
+          and summ["final_points"].get("SMPLNodes", 0) > 0,
+          f"guards or SMPL: {summ}")
+    check(math.isfinite(test["psnr"]), f"test PSNR {test['psnr']}")
+    phase("preprocess", t0, raw_log={
+              "cameras": n_cams, "image_wh": [raw_scene.WIDTH,
+                                              raw_scene.HEIGHT],
+              "lidar_points_per_sweep": raw_scene.BEAMS * raw_scene.AZIMUTHS,
+              "keyframes": raw_scene.NUM_KEYFRAMES,
+              "annotations_per_keyframe": raw_scene.ANNOTATIONS},
+          frames=n_frames, files_equal_cuda_cpu=n_files,
+          pedestrians_in_smpl_pkl=len(smpl), stage_s={"cuda": stages["cuda"],
+                                                       "cpu": stages["cpu"]},
+          wall_s={k: round(v, 3) for k, v in seconds.items()},
+          segformer=seg, train_steps=summ["steps"], train_built_in=built,
+          train_steps_per_s_after_warmup=summ["steps_per_s_after_warmup"],
+          train_peak_mem_bytes=summ["peak_mem_bytes"],
+          final_points=summ["final_points"], launches=launched,
+          test_psnr=test["psnr"], device=str(dev), nvidia_smi=nvidia_smi())
+    shutil.rmtree(out)
+    return launched
 
 
 def main() -> int:
@@ -3692,6 +4056,11 @@ def main() -> int:
                                        "steps": SYNTH_STEPS}
         k["launches_cli_downscale"] = {"train": half_l[k["name"]],
                                        "steps": CLI_PRESET_STEPS}
+
+    pre_l = preprocess_phase(dev, args.seed)
+    for k in kernels:
+        k["launches_preprocess"] = {"train": pre_l[k["name"]],
+                                    "steps": PRE_TRAIN_STEPS}
 
     phase("total", t_start, seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
