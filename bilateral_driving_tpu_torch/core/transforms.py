@@ -1,5 +1,8 @@
 """Rotation math on tensors: port of bilateral_driving_tpu/core/transforms.py
-(the functions the render path, the SMPL bodies and camera refinement use).
+(the functions the render path, the SMPL bodies and camera refinement use,
+and the JAX package's public helpers none of them calls: the 6D encoding
+of a rotation, homogeneous point transforms, the SE(3) inverse and pose
+interpolation).
 
 Quaternions are (w, x, y, z). Every function broadcasts over leading batch
 dimensions and stays finite at the origin, in both passes.
@@ -133,8 +136,37 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two rows, which
+    rotation_6d_to_matrix maps back to a rotation matrix."""
+    return m[..., :2, :].reshape(m.shape[:-2] + (6,))
+
+
+def transform_points(matrix: torch.Tensor, points: torch.Tensor
+                     ) -> torch.Tensor:
+    """Apply a (..., 4, 4) homogeneous transform to (..., N, 3) points."""
+    return (points @ matrix[..., :3, :3].transpose(-1, -2)
+            + matrix[..., None, :3, 3])
+
+
 def se3_compose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Rotation (..., 3, 3) and translation (..., 3) -> (..., 4, 4)."""
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
                           device=R.device).expand(*R.shape[:-2], 1, 4)
     return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 4, 4) rigid transforms: [R^T | -R^T t]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return se3_compose(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
+
+
+def interpolate_poses(T0: torch.Tensor, T1: torch.Tensor,
+                      t: float) -> torch.Tensor:
+    """(..., 4, 4) poses at scalar t between T0 and T1: the rotations
+    slerped, the translations lerped."""
+    q = quat_slerp(rotmat_to_quat(T0[..., :3, :3]),
+                   rotmat_to_quat(T1[..., :3, :3]), t)
+    tr = (1.0 - t) * T0[..., :3, 3] + t * T1[..., :3, 3]
+    return se3_compose(quat_to_rotmat(q), tr)

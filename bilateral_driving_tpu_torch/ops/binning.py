@@ -2,7 +2,10 @@
 
 Port of bilateral_driving_tpu/ops/binning.py. Every integer here must equal
 the JAX package's exactly (TILE=32, CHUNK=128), so that intersection lists
-and `num_isects` compare entry by entry.
+and `num_isects` compare entry by entry. The render pipeline (ops/pipeline)
+runs these stages with the feature rows riding its sort; `bin_gaussians`
+is the same binning on its own, with `expand`'s capacity-sized fill of
+each entry's Gaussian, for inspection and tests.
 """
 from __future__ import annotations
 
@@ -26,6 +29,16 @@ def tile_bits(n_tiles: int) -> int:
     while (1 << bits) <= n_tiles:
         bits += 1
     return bits
+
+
+def quantize_depth_like_sort(depths, n_tiles: int):
+    """Depths as the packed sort key sees them: float32, clamped at 0, the
+    low tile_bits(n_tiles) bits of the float's pattern cleared."""
+    shift = tile_bits(n_tiles)
+    # + 0.0 turns the clamp's -0.0 into the +0.0 that jnp.maximum gives
+    bits = (torch.clamp(depths.to(torch.float32), min=0.0) + 0.0).view(
+        torch.int32)
+    return ((bits >> shift) << shift).view(torch.float32)
 
 
 def fill_monotone(values_at, positions, size: int):
@@ -76,20 +89,38 @@ def entries_above(means2d, radii, valid, width: int, tile_rows: int):
 
 
 class Expansion(NamedTuple):
-    offsets: torch.Tensor     # (N+1,) int32 segment starts, clamped to cap
-    num_isects: torch.Tensor  # () int32, before truncation
-    overflow: torch.Tensor    # () bool
+    g: torch.Tensor            # (cap,) int32 each entry's Gaussian
+    m_idx: torch.Tensor        # (cap,) int32 arange
+    offsets: torch.Tensor      # (N+1,) int32 segment starts, clamped to cap
+    entry_valid: torch.Tensor  # (cap,) bool, m_idx < num_isects
+    num_isects: torch.Tensor   # () int32, before truncation
+    overflow: torch.Tensor     # () bool
+
+
+def expand(counts, isect_capacity: int) -> Expansion:
+    """Per-Gaussian counts -> entries 0..cap-1, each with its Gaussian: the
+    offsets' prefix sum, then fill_monotone of the Gaussian ids at their
+    segment starts."""
+    ex = expand_light(counts, isect_capacity)
+    m_idx = torch.arange(isect_capacity, dtype=torch.int32,
+                         device=counts.device)
+    g = fill_monotone(torch.arange(counts.shape[0], dtype=torch.int32,
+                                   device=counts.device),
+                      ex.offsets[:-1], isect_capacity)
+    return ex._replace(g=g, m_idx=m_idx, entry_valid=m_idx < ex.num_isects)
 
 
 def expand_light(counts, isect_capacity: int) -> Expansion:
-    """Per-Gaussian entry offsets and totals; the expansion kernel recovers
-    each entry's Gaussian itself."""
-    offsets = torch.cat([torch.zeros(1, dtype=torch.int32,
-                                     device=counts.device),
+    """`expand` without the capacity-sized fill (`g`, `m_idx` and
+    `entry_valid` empty): the expansion kernel recovers each entry's
+    Gaussian itself."""
+    dev = counts.device
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                          scan_utils.cumsum(counts.to(torch.int32))])
     m_total = offsets[-1]
-    return Expansion(torch.clamp(offsets, max=isect_capacity), m_total,
-                     m_total > isect_capacity)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    return Expansion(empty, empty, torch.clamp(offsets, max=isect_capacity),
+                     empty.bool(), m_total, m_total > isect_capacity)
 
 
 def entry_tiles(g_tx0, g_ty0, g_sw, g_seg_start, m_idx, ntx: int):
@@ -126,3 +157,39 @@ def tile_ranges(tile_s, m_total, n_tiles: int, isect_capacity: int):
                              device=tile_s.device), right=False)
     edges = torch.minimum(edges.to(torch.int32), m_total_c)
     return edges[:-1].contiguous(), (edges[1:] - edges[:-1]).contiguous()
+
+
+class Intersections(NamedTuple):
+    """Sorted intersection lists of `bin_gaussians`."""
+    gauss_ids: torch.Tensor    # (cap,) int32 in [0, N); junk past num_isects
+    isect_tile: torch.Tensor   # (cap,) int32 owning tile (n_tiles: none)
+    tile_counts: torch.Tensor  # (n_tiles,) int32
+    tile_starts: torch.Tensor  # (n_tiles,) int32 starts in the sorted lists
+    eidx: torch.Tensor         # (cap,) int32 expansion index at each place
+    num_isects: torch.Tensor   # () int32 entries before truncation
+    overflow: torch.Tensor     # () bool: isect_capacity exceeded
+    offsets: torch.Tensor      # (N+1,) per-Gaussian expansion boundaries
+
+
+def bin_gaussians(means2d, radii, depths, valid, width: int, height: int,
+                  isect_capacity: int) -> Intersections:
+    """Standalone binning without feature rows: spans, expand, each
+    entry's tile, the packed tile|depth key and a sort of the keys. The
+    sort is stable, so entries of equal keys keep expansion order, which
+    is Gaussian order (the JAX package's sort is not stable: its order of
+    equal keys is unspecified)."""
+    ntx, nty = num_tiles(width, height)
+    n_tiles = ntx * nty
+    sp = spans(means2d, radii, valid, width, height)
+    ex = expand(sp.counts, isect_capacity)
+    g = ex.g.long()
+    tile = entry_tiles(sp.tx0[g], sp.ty0[g], sp.span_w[g], ex.offsets[g],
+                       ex.m_idx, ntx)
+    key = pack_keys(tile, depths[g], n_tiles, ex.entry_valid)
+    key_s, order = torch.sort(key, stable=True)
+    tile_s = tiles_of_keys(key_s, n_tiles)
+    starts, cnt = tile_ranges(tile_s, ex.num_isects, n_tiles, isect_capacity)
+    return Intersections(
+        gauss_ids=ex.g[order], isect_tile=tile_s, tile_counts=cnt,
+        tile_starts=starts, eidx=order.to(torch.int32),
+        num_isects=ex.num_isects, overflow=ex.overflow, offsets=ex.offsets)

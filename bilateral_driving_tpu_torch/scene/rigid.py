@@ -1,6 +1,7 @@
 """Rigid vehicle nodes: port of bilateral_driving_tpu/scene/rigid.py
-(rendering, the out-of-box cull of refinement and the pose tracks'
-temporal smoothness).
+(rendering, the out-of-box cull of refinement, the out-of-box penalty,
+the pose tracks' temporal smoothness and the offline instance-editing API:
+remove_instances and replace_instances).
 
 Gaussians live in instance-local frames; per-frame, per-instance pose
 tracks (quats (F, I, 4), trans (F, I, 3)) carry them to world. Test views
@@ -14,6 +15,8 @@ from typing import NamedTuple
 import torch
 
 from ..core import gaussians as G, transforms
+
+POSE_KEYS = ("instances_quats", "instances_trans")
 
 
 class RigidConfig(NamedTuple):
@@ -77,6 +80,49 @@ def out_of_bound_mask(params, statics) -> torch.Tensor:
     return torch.any(torch.abs(params["means"]) > sizes / 2.0, dim=-1)
 
 
+def remove_instances(statics, mask, remove_ids):
+    """The alive mask with every Gaussian of the instance ids in
+    `remove_ids` killed: a new tensor of the mask's dtype and capacity.
+    statics: a dict holding point_ids (C,), the instance of each slot."""
+    pid = statics["point_ids"]
+    ids = torch.as_tensor(list(remove_ids), dtype=pid.dtype,
+                          device=pid.device)
+    return mask * (~torch.isin(pid, ids)).to(mask.dtype)
+
+
+def replace_instances(params, statics, mask, replace: dict):
+    """replace = {target_id: donor_id}: each target instance's Gaussians
+    killed and the donor's live rows of every per-point parameter copied,
+    in slot order, into the lowest free slots (the target's, then dead
+    ones) and tagged with the target's id, so the copy follows the target's
+    pose track. The pose tracks stay as they are.
+
+    Returns new (params, statics, mask) tensors on the inputs' device; the
+    inputs are not written. Raises ValueError if a donor has more live
+    Gaussians than there are free slots."""
+    pid = statics["point_ids"].clone()
+    alive = mask.bool().clone()
+    rows = {k: v.detach().clone() for k, v in params.items()
+            if k not in POSE_KEYS}
+    for target, donor in replace.items():
+        src = alive & (pid == donor)
+        alive[alive & (pid == target)] = False
+        free = torch.nonzero(~alive)[:, 0]
+        n_src = int(src.sum())
+        if n_src > free.numel():
+            raise ValueError(
+                f"replace_instances: donor {donor} has {n_src} points but "
+                f"only {free.numel()} free slots remain")
+        dst = free[:n_src]
+        src_idx = torch.nonzero(src)[:, 0]
+        for v in rows.values():
+            v[dst] = v[src_idx]
+        pid[dst] = target
+        alive[dst] = True
+    return ({**params, **rows}, {**statics, "point_ids": pid},
+            alive.to(mask.dtype))
+
+
 def temporal_smoothness_loss(params, statics, w_trans: float,
                              w_quat: float) -> torch.Tensor:
     """Squared differences of consecutive frames' instance quaternions and
@@ -89,3 +135,14 @@ def temporal_smoothness_loss(params, statics, w_trans: float,
     dq = torch.sum((iq[1:] - iq[:-1]) ** 2, dim=-1)
     dt = torch.sum((it[1:] - it[:-1]) ** 2, dim=-1)
     return (w_quat * torch.sum(dq * both) + w_trans * torch.sum(dt * both)) / n
+
+
+def reg_loss(params, statics, mask, w_out_of_bound: float = 1.0
+             ) -> torch.Tensor:
+    """Out-of-box penalty: how far each live point lies outside its
+    instance's box, summed over the axes, averaged over the live points."""
+    sizes = statics["instances_size"][statics["point_ids"].long()]
+    excess = torch.clamp(torch.abs(params["means"]) - sizes / 2.0, min=0.0)
+    m = mask.to(excess.dtype)
+    return (w_out_of_bound * torch.sum(torch.sum(excess, -1) * m)
+            / torch.clamp(torch.sum(m), min=1.0))

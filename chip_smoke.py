@@ -16,8 +16,11 @@ an image in bands, the CLI's parallel flags), computes
 LPIPS, trains, resumes and evaluates a scene from disk through the port's
 CLI (tools.train, tools.eval) with every preset and from YAML files,
 renders the trained run's splits and a novel trajectory (tools.render),
-and holds every hand-written kernel of those paths against its plain
-PyTorch version.
+compares the trained run's gradients past its densification with the
+plain versions', edits the flagship scene's cars (scene.rigid's
+remove_instances and replace_instances) and bins it with the standalone
+binning.bin_gaussians, and holds every hand-written kernel of those paths
+against its plain PyTorch version.
 Phases, each printed on its own line with its result and elapsed seconds:
 
   env       PyTorch and CUDA versions, nvcc, ninja, PyYAML, PIL, the card
@@ -53,6 +56,25 @@ Phases, each printed on its own line with its result and elapsed seconds:
   profile   one frame under torch.profiler: device busy time, idle share,
             the number of device operations and those that take the most
             device time
+  edit      the offline rigid-instance editing API on the flagship state:
+            the first train view in which two cars each cover 100 pixels
+            with a visible weight (their share of the pixel's alpha) above
+            0.5, the larger removed
+            (scene.rigid.remove_instances) and the other replaced by a
+            third car's Gaussians (replace_instances), the state's tensors
+            left as they were; the edited view through the kernels
+            (counters from 0: the expansion, compositing forward and scan
+            launched, nothing else) and through the plain versions (no
+            launch), rgb and alpha within 3e-5 and depth within 1e-3 where
+            alpha > 0.2; the removed car's pixels changed, the tiles no
+            span of the edited cars touches unmoved (3e-5; 1e-4, the early
+            stop's transmittance, in tiles every pixel of which reaches
+            it); binning.bin_gaussians on the edited render's projection
+            on the card (only the scan launched): num_isects the render's,
+            the tile counts summing to it, its sorted entries the render's
+            and none of the removed car, and counts, starts, offsets,
+            owning tiles, entries, num_isects and overflow bit-equal to
+            bin_gaussians on the CPU
   targets   training targets: renders of a second state drawn from another
             seed, 1 - its alpha as the sky mask and 5% of its depths
             where alpha > 0.5 as the lidar map
@@ -108,6 +130,16 @@ Phases, each printed on its own line with its result and elapsed seconds:
             trajectory as PNG frames; ms per novel frame, one expansion,
             compositing forward and scan per frame, every frame finite and
             every PNG's IDAT the image's bytes
+  cli_grads the cli run's state past its densification, rebuilt from its
+            config.json and step-150 checkpoint as tools.eval rebuilds it:
+            at steps 151-154, at the refining step 200 and at 201 the
+            kernel step's gradients against the all-plain step's from the
+            same state (every leaf and the screen-space means, relative
+            norm within 1e-3), teacher-forced (the kernel step advances
+            the state after each comparison and at every step between),
+            with the worst leaf, the live Gaussians of each class and
+            num_isects of each compared step, the refinement at 200
+            changing the live counts, and the launches over the 51 steps
   bilateral_scene   omnire_bilateral (configs.OMNIRE_BILATERAL_TREE) on the
             same scene plus 8 SMPL walkers of 6,890 vertices each (55,120
             Gaussians, each walker in view of one camera, its own random
@@ -235,8 +267,9 @@ Phases, each printed on its own line with its result and elapsed seconds:
   total     the run's seconds
 
 Then a `kernels` JSON line (each entry also with its launches on the
-omnire_bilateral, omnire, background_variants, option_variants, parallel,
-cli_yaml, render_cli, cli_synthetic, cli_downscale and preprocess paths),
+edit, omnire_bilateral, omnire, background_variants, option_variants,
+parallel, cli_yaml, render_cli, cli_grads, cli_synthetic, cli_downscale
+and preprocess paths),
 the card's name and power limit as
 nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the run exits non-zero and prints no result line; so does
@@ -302,6 +335,20 @@ CLI_OVERRIDES = [
     "density.warmup_steps=100", "density.refine_interval=100",
     "trainer.steps_per_dispatch=4", "logging.ckpt_every=150",
     "logging.log_every=50"]
+# cli_grads: the cli run's state from its step-150 checkpoint, the
+# kernel step's gradients against the all-plain step's (teacher-forced)
+# at the four steps after it, at the refining step 200 and at 201, the
+# first step on the densified state
+CLI_GRAD_STEPS = (151, 152, 153, 154, 200, 201)
+# edit: the first train view in which two cars each cover EDIT_MIN_PIXELS
+# pixels with a visible weight above 0.5 (their share of the pixel's
+# alpha); a pixel of the removed car counts as changed where the rendered
+# rgb moved by more than EDIT_CHANGED, and EDIT_CHANGED_SHARE of them
+# must; renders held to the port's render tolerances (ROADMAP.md,
+# Tolerances)
+EDIT_MIN_PIXELS = 100
+EDIT_CHANGED, EDIT_CHANGED_SHARE = 1e-3, 0.9
+RENDER_ATOL, DEPTH_ATOL = 3e-5, 1e-3
 # omnire_bilateral on the same scene: 8 SMPL walkers of 6,890 vertices
 # (the SMPL mesh's count; each its own random body) and the single grids
 # (240, 12, 8, 16, 16); a train and a test view rendered 3 times each; its
@@ -1307,10 +1354,12 @@ def train_path(prefix, args, cfg, scene, state, statics, dev, images):
                         for b in batches])
 
     # ---- grads: the first step's gradients, kernels against plain
-    # versions (later states are not compared: after four steps at the
-    # deformation network's learning rate its scale head has grown some
-    # DeformableNodes scales until their projection overflows to NaN, in
-    # the JAX package's projection as in this one; ROADMAP.md)
+    # versions (later steps of this synthetic state are not compared: after
+    # four steps at the deformation network's learning rate its scale head
+    # has grown some DeformableNodes scales until their projection
+    # overflows to NaN, in the JAX package's projection as in this one;
+    # the cli_grads phase compares a trained state's steps past its
+    # densification instead)
     t0 = time.perf_counter()
     tstate = trainer.init_state(
         cfg, state.params, state.masks, state.aux, step=TRAIN_STEP0,
@@ -1474,6 +1523,258 @@ def plain_step_grads(cfg, statics, tstate, batch, time_offset=None):
             (binning, "scan_utils", plain_scans())):
         return trainer.compute_grads(cfg, statics, tstate, batch,
                                      time_offset=time_offset)
+
+
+def tile_cover(sp, select, ntx: int, nty: int):
+    """(nty, ntx) bool: the tiles the spans `sp` (binning.Spans) of the
+    Gaussians in `select` (N,) bool touch."""
+    import torch
+
+    hit = select & (sp.counts > 0)
+    x0, y0 = sp.tx0[hit].long(), sp.ty0[hit].long()
+    x1 = x0 + sp.span_w[hit].long()
+    y1 = y0 + torch.div(sp.counts[hit], sp.span_w[hit],
+                        rounding_mode="floor").long()
+    # a 2-D difference array: +1 at each span's corner, prefix sums over
+    # both axes count the spans over each tile
+    d = torch.zeros((nty + 1, ntx + 1), dtype=torch.int64,
+                    device=sp.counts.device)
+    for ys, xs, v in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        d.index_put_((ys, xs), torch.full_like(ys, v), accumulate=True)
+    return d.cumsum(0).cumsum(1)[:nty, :ntx] > 0
+
+
+def instance_weights(cfg, state, full_statics, batch):
+    """trainer.forward of one view with each rigid instance's visible
+    weight (the share of the pixel's alpha its Gaussians composite) beside
+    it, from renders of the same Gaussians coloured by three instance
+    indicators at a time: the forward's outputs, the (I, H, W) weights and
+    the render's spans arguments (means2d, radii, valid)."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import binning, pipeline
+    from bilateral_driving_tpu_torch.train import trainer
+
+    n_bg = state.masks["Background"].shape[0]
+    pid = full_statics["RigidNodes"]["point_ids"].long()
+    n_inst = state.params["RigidNodes"]["instances_quats"].shape[1]
+    weights, spans_args = [], {}
+
+    def fn(means, quats, scales, opac, colors, viewmat, K, w, h, rcfg,
+           **kw):
+        inst = torch.full((means.shape[0],), -1, dtype=torch.long,
+                          device=means.device)
+        inst[n_bg:n_bg + pid.shape[0]] = pid
+        for i0 in range(0, n_inst, 3):
+            ind = torch.stack([(inst == i0 + c).to(colors.dtype)
+                               for c in range(3)], dim=-1)
+            rgb = pipeline.rasterize(means, quats, scales, opac, ind,
+                                     viewmat, K, w, h, rcfg)["rgb"]
+            weights.extend(rgb[..., c] for c in range(min(3, n_inst - i0)))
+        with patched((binning, "spans",
+                      capturing(spans_args, "spans", binning.spans))):
+            return pipeline.rasterize(means, quats, scales, opac, colors,
+                                      viewmat, K, w, h, rcfg, **kw)
+
+    o = trainer.forward(cfg, state.params, full_statics, state.masks, batch,
+                        state.step, rasterize_fn=fn)
+    return o, torch.stack(weights), spans_args["spans"][0]
+
+
+def edit_phase(cfg, data, state, statics, dev) -> dict:
+    """The edit phase: the offline rigid-instance editing API and the
+    standalone binning on the flagship state at full width. Returns the
+    launches of the edited render and of bin_gaussians."""
+    import torch
+
+    from bilateral_driving_tpu_torch.ops import (binning, expand_cuda,
+                                                 pipeline, rasterize_cuda)
+    from bilateral_driving_tpu_torch.scene import rigid
+    from bilateral_driving_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    full_statics = trainer.merge_statics(statics, state.aux)
+    # the first train view in which two cars each cover EDIT_MIN_PIXELS
+    # pixels with a visible weight above 0.5 (the synthetic scene's
+    # clutter hides much of a car: its alpha alone overstates it)
+    train_views = [i for i in range(data.num_images)
+                   if i // NUM_CAMS == 0 or (i // NUM_CAMS) % TEST_STRIDE]
+    best = []
+    for idx in train_views:
+        batch = data.get_batch(idx)
+        # the view's own capacity where it has more entries than the
+        # views the configuration's was probed on
+        cap, _ = isect_capacity(cfg, state, full_statics, [(batch, False)],
+                                WIDTH, HEIGHT, batch["intrinsics"])
+        vcfg = dataclasses.replace(
+            cfg, isect_capacity=max(cap, cfg.isect_capacity))
+        o0, weights, spans0 = instance_weights(vcfg, state, full_statics,
+                                               batch)
+        cover = (weights > 0.5).sum((1, 2))
+        top = torch.argsort(cover, descending=True)[:2].tolist()
+        best.append((int(cover[top[1]]), idx))
+        if best[-1][0] >= EDIT_MIN_PIXELS:
+            break
+    else:
+        raise SmokeError("no train view shows two cars of "
+                         f"{EDIT_MIN_PIXELS} pixels: (second car's pixels, "
+                         f"view) {sorted(best)[-5:]}")
+    removed, target = top
+    donor = min(set(range(cover.numel())) - {removed, target})
+    n_bg = state.masks["Background"].shape[0]
+    rp, rs = state.params["RigidNodes"], full_statics["RigidNodes"]
+    rm = state.masks["RigidNodes"]
+    kept = (rm.clone(), rs["point_ids"].clone(), rp["means"].clone())
+    p_e, s_e, m_e = rigid.replace_instances(rp, rs, rm, {target: donor})
+    m_e = rigid.remove_instances(s_e, m_e, [removed])
+    check(torch.equal(rm, kept[0]) and torch.equal(rs["point_ids"], kept[1])
+          and torch.equal(rp["means"], kept[2]),
+          "the editing API wrote into the state")
+    pid_e = s_e["point_ids"]
+    live = m_e > 0
+    live_of = {i: int((live & (pid_e == i)).sum())
+               for i in (removed, target, donor)}
+    check(live_of[removed] == 0 and live_of[target] == live_of[donor]
+          == int(((rm > 0) & (rs["point_ids"] == donor)).sum()),
+          f"edited live counts {live_of}")
+    params_e = {**state.params, "RigidNodes": p_e}
+    statics_e = {**full_statics, "RigidNodes": s_e}
+    masks_e = {**state.masks, "RigidNodes": m_e}
+
+    # the edited render: kernels, counters from 0
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    captured = {}
+    with patched((binning, "spans",
+                  capturing(captured, "spans", binning.spans))):
+        o1 = trainer.forward(vcfg, params_e, statics_e, masks_e, batch,
+                             state.step)
+    spans1 = captured["spans"][0]
+    torch.cuda.synchronize()
+    render_l = counts(wrappers)
+    check(all(render_l[k] > 0 for k in RENDER_PATH)
+          and all(render_l[k] == 0 for k in render_l
+                  if k not in RENDER_PATH),
+          f"the edited render's launches: {render_l}")
+    # ... and through the plain versions
+    with kernels_replaced(
+            pipeline, binning, expand_cuda.expand_gather_plain,
+            lambda *a: rasterize_cuda.rasterize_fwd_plain(*a).img,
+            plain_scans()):
+        o1p = trainer.forward(vcfg, params_e, statics_e, masks_e, batch,
+                              state.step)
+    check(counts(wrappers) == render_l,
+          "a kernel launched in the plain edited render")
+    errs = {k: float((o1[k] - o1p[k]).abs().max())
+            for k in ("rgb", "opacity")}
+    hit = o1p["opacity"] > 0.2
+    errs["depth"] = float((o1["depth"] - o1p["depth"])[hit].abs().max())
+    check(errs["rgb"] <= RENDER_ATOL and errs["opacity"] <= RENDER_ATOL
+          and errs["depth"] <= DEPTH_ATOL,
+          f"the edited render differs from its plain render: {errs}")
+    check(int(o1["info"]["num_isects"]) == int(o1p["info"]["num_isects"])
+          and not bool(o0["info"]["overflow"] | o1["info"]["overflow"]),
+          "the edited render's num_isects differs from the plain render's, "
+          "or a render overflowed")
+
+    # the removed car's pixels changed. Tiles that no span of the removed
+    # car, the replaced car or its copy touches keep their entries: where
+    # a pixel of such a tile keeps a transmittance above the early stop's
+    # STOP_T, the tile composites every entry in both renders (within
+    # rounding: the plain version sums within 128-entry chunks); a
+    # tile whose every pixel falls to STOP_T may stop one 128-entry chunk
+    # earlier or later (its entries start at another place in the
+    # chunks), which moves a pixel by at most STOP_T
+    removed_px = weights[removed] > 0.5
+    moved = (o1["rgb_gaussians"] - o0["rgb_gaussians"]).abs().amax(-1)
+    changed = int((removed_px & (moved > EDIT_CHANGED)).sum())
+    ntx, nty = binning.num_tiles(WIDTH, HEIGHT)
+    sp1 = binning.spans(*spans1)
+    n_all = sp1.counts.numel()
+
+    def of(pid, m, ids):
+        sel = torch.zeros(n_all, dtype=torch.bool, device=dev)
+        sel[n_bg:n_bg + pid.numel()] = (m > 0) & torch.isin(
+            pid, torch.tensor(ids, dtype=pid.dtype, device=dev))
+        return sel
+
+    near = (tile_cover(binning.spans(*spans0),
+                       of(rs["point_ids"], rm, [removed, target]), ntx, nty)
+            | tile_cover(sp1, of(pid_e, m_e, [target]), ntx, nty))
+
+    def per_pixel(t):
+        return t.repeat_interleave(binning.TILE, 0).repeat_interleave(
+            binning.TILE, 1)[:HEIGHT, :WIDTH]
+
+    def saturated(o):
+        pad = torch.ones((nty * binning.TILE, ntx * binning.TILE),
+                         device=dev)
+        pad[:HEIGHT, :WIDTH] = o["opacity"][..., 0]
+        return (1.0 - pad).view(nty, binning.TILE, ntx, binning.TILE).amax(
+            (1, 3)) <= rasterize_cuda.STOP_T
+
+    sat = saturated(o0) | saturated(o1)
+    far = {}
+    stop_t = rasterize_cuda.STOP_T
+    for name, tiles, bound in (("open", ~near & ~sat, RENDER_ATOL),
+                               ("saturated", ~near & sat, stop_t)):
+        px = per_pixel(tiles)
+        far[name] = {"tiles": int(tiles.sum()), "pixels": int(px.sum()),
+                     "bound": bound}
+        for k in ("rgb_gaussians", "opacity"):
+            d = (o1[k] - o0[k])[px].abs()
+            far[name][k] = float(d.max()) if d.numel() else 0.0
+            check(far[name][k] <= bound, f"the image away from the edited "
+                  f"cars moved in {name} tiles: {far[name]}")
+    check(changed >= EDIT_CHANGED_SHARE * int(removed_px.sum()),
+          f"{changed} of the removed car's {int(removed_px.sum())} pixels "
+          "changed")
+
+    # bin_gaussians on the edited render's projection, on the card and on
+    # the CPU
+    m2d, radii, valid = spans1[:3]
+    depths = o1["info"]["depths"]
+    zero_launches(wrappers)
+    isect = binning.bin_gaussians(m2d, radii, depths, valid, WIDTH, HEIGHT,
+                                  vcfg.isect_capacity)
+    torch.cuda.synchronize()
+    bin_l = counts(wrappers)
+    check(bin_l["scan"] >= 2 and all(
+        v == 0 for k, v in bin_l.items() if k != "scan"),
+          f"bin_gaussians' launches: {bin_l}")
+    n_isects = int(isect.num_isects)
+    check(n_isects == int(o1["info"]["num_isects"])
+          and not bool(isect.overflow)
+          and int(isect.tile_counts.long().sum()) == n_isects,
+          f"bin_gaussians: {n_isects} entries, overflow "
+          f"{bool(isect.overflow)}, tile counts summing to "
+          f"{int(isect.tile_counts.long().sum())}; the render: "
+          f"{int(o1['info']['num_isects'])}")
+    gids = isect.gauss_ids[:n_isects]
+    check(torch.equal(gids, o1["info"]["gauss_ids"][:n_isects]),
+          "bin_gaussians' entries differ from the render's sorted entries")
+    gone = n_bg + torch.nonzero(pid_e == removed)[:, 0]
+    check(not bool(torch.isin(gids, gone.to(gids.dtype)).any()),
+          "an entry carries a Gaussian of the removed car")
+    cpu = binning.bin_gaussians(m2d.cpu(), radii.cpu(), depths.cpu(),
+                                valid.cpu(), WIDTH, HEIGHT,
+                                vcfg.isect_capacity)
+    same = {k: torch.equal(getattr(isect, k).cpu(), getattr(cpu, k))
+            for k in ("tile_counts", "tile_starts", "offsets", "num_isects",
+                      "overflow", "isect_tile")}
+    same["gauss_ids"] = torch.equal(gids.cpu(), cpu.gauss_ids[:n_isects])
+    check(all(same.values()), f"bin_gaussians on the card and on the CPU "
+          f"differ: {same}")
+    phase("edit", t0, image=idx, isect_capacity=vcfg.isect_capacity,
+          removed=removed, replaced=target,
+          donor=donor, cover_pixels=cover.tolist(), live=live_of,
+          max_abs_err=errs, tolerance={"rgb_alpha": RENDER_ATOL,
+                                       "depth_alpha_0.2": DEPTH_ATOL},
+          removed_pixels=int(removed_px.sum()), removed_changed=changed,
+          near_tiles=int(near.sum()), tiles=ntx * nty, far=far,
+          num_isects=n_isects, launches=render_l, bin_launches=bin_l,
+          bin_bit_equal_cpu=sorted(same))
+    return {"render": render_l, "bin_gaussians": bin_l}
 
 
 def training(args, cfg, scene, state, statics, dev):
@@ -3282,9 +3583,11 @@ def run_cli(module: str, *argv) -> float:
 
 def cli(dev):
     """The cli phase: train, resume and evaluate proto_scene through the
-    port's CLI. The run directories (their checkpoints hold parameters
-    and Adam moments of 2,097,152 background slots) go to
-    work_dirs/chip_smoke_cli in the checkout and are removed after."""
+    port's CLI, then render_cli and cli_grads on its run. The run
+    directories (their checkpoints hold parameters and Adam moments of
+    2,097,152 background slots) go to work_dirs/chip_smoke_cli in the
+    checkout and are removed after. Returns the launches of render_cli and
+    of cli_grads."""
     t0 = time.perf_counter()
     out = os.path.join(ROOT, "work_dirs", "chip_smoke_cli")
     shutil.rmtree(out, ignore_errors=True)
@@ -3346,8 +3649,86 @@ def cli(dev):
           eval_s=round(eval_s, 2), snapshot_step_0=snap[:3],
           device=str(dev), nvidia_smi=nvidia_smi())
     render_launches = render_cli(dev, run_dir)
+    grads_launches = cli_grads(dev, run_dir)
     shutil.rmtree(out)
-    return render_launches
+    return render_launches, grads_launches
+
+
+def cli_grads(dev, run_dir: str) -> dict:
+    """The cli_grads phase: the cli run's state past a densification,
+    rebuilt from its config.json and step-150 checkpoint as tools.eval
+    rebuilds it, the kernel step's gradients held against the all-plain
+    step's from the same state at CLI_GRAD_STEPS, teacher-forced: after
+    each comparison and each step between them the kernel step advances
+    the state. Returns the launches over those steps."""
+    import torch
+
+    from bilateral_driving_tpu_torch.tools import train as train_cli
+    from bilateral_driving_tpu_torch.train import checkpoint, trainer
+    from bilateral_driving_tpu_torch.utils import config as config_lib
+
+    t0 = time.perf_counter()
+    cfg = config_lib.load_config(os.path.join(run_dir, "config.json"))
+    tcfg, data, statics, state = train_cli.build(cfg, 0, dev)
+    state, extra = checkpoint.restore_checkpoint(os.path.join(
+        run_dir, "checkpoints", f"checkpoint_{CLI_RESUME_STEP}.pt"), state)
+    tcfg = dataclasses.replace(tcfg, isect_capacity=extra["isect_capacity"])
+    check(state.step == CLI_GRAD_STEPS[0],
+          f"the checkpoint holds step {state.step}")
+    # past the resolution schedule's last doubling: full resolution
+    check(state.step >= cfg.get_path("res_schedule.double_steps")
+          * cfg.get_path("res_schedule.downscale_times"),
+          "the checkpoint is inside the resolution schedule")
+    train_idx, _ = data.split_train_test(
+        cfg.get_path("data.test_image_stride", 10))
+    classes = trainer.gaussian_classes(tcfg)
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    compared = []
+    while state.step <= CLI_GRAD_STEPS[-1]:
+        step = state.step
+        batch = data.get_batch(int(train_idx[step % len(train_idx)]))
+        if step not in CLI_GRAD_STEPS:
+            state, m = trainer.train_step(tcfg, statics, state, batch)
+            continue
+        live = {c: int(state.masks[c].sum()) for c in classes}
+        before = counts(wrappers)
+        total, loss, out, g_k, gd_k = trainer.compute_grads(
+            tcfg, statics, state, batch)
+        mid = counts(wrappers)
+        check(all(mid[k] > before[k] for k in TRAIN_PATH),
+              f"the kernel step {step} missed a kernel: {before} -> {mid}")
+        _, _, _, g_p, gd_p = plain_step_grads(tcfg, statics, state, batch)
+        check(counts(wrappers) == mid,
+              f"a kernel launched in the plain-version step {step}")
+        rels = {k: rel_norm(g_k[k], g_p[k]) for k in g_k}
+        rels["means2d"] = rel_norm(gd_k, gd_p)
+        worst = max(rels, key=rels.get)
+        state, m = trainer.apply_grads_and_refine(
+            tcfg, statics, state, batch, total, loss, out, g_k, gd_k)
+        compared.append({
+            "step": step, "worst_leaf": worst, "worst_rel_norm": rels[worst],
+            "leaves": len(rels), "live": live,
+            "num_isects": int(out["info"]["num_isects"]),
+            "overflow": bool(out["info"]["overflow"]),
+            "refined": step % tcfg.density.refine_interval == 0,
+            "live_after": {c: int(m[f"num_points/{c}"]) for c in classes}})
+        check(rels[worst] <= GRADS_RTOL,
+              f"step {step}: gradient of {worst} differs from the plain "
+              f"step by {rels[worst]}")
+        check(float(m["nonfinite_params"]) == 0,
+              f"non-finite parameters after step {step}")
+        del g_k, g_p, gd_k, gd_p, out
+    torch.cuda.synchronize()
+    launched = counts(wrappers)
+    refined = [c for c in compared if c["refined"]]
+    check(refined and refined[0]["live_after"] != refined[0]["live"],
+          f"no densification among the compared steps: {compared}")
+    phase("cli_grads", t0, checkpoint_step=CLI_GRAD_STEPS[0],
+          compared=compared, tolerance=GRADS_RTOL, launches=launched,
+          steps=CLI_GRAD_STEPS[-1] + 1 - CLI_GRAD_STEPS[0],
+          nvidia_smi=nvidia_smi())
+    return launched
 
 
 def start_port(started: list, module: str, *argv):
@@ -3996,12 +4377,17 @@ def main() -> int:
           device_idle_share_of_median_frame=prof.pop(
               "device_idle_share_of_median"), **prof)
 
+    edit_l = edit_phase(cfg, data, state, statics, dev)
+
     train_kernels, scan_per_step, fwd_train = training(
         args, cfg, scene, state, statics, dev)
     kernels[2]["launches_per_step"] = scan_per_step
     # the forward's second row: with residuals, at the training inputs
     kernels[1]["residuals_at_train_inputs"] = fwd_train
     kernels += train_kernels
+    for k in kernels:
+        k["launches_edit"] = {path: launched[k["name"]]
+                              for path, launched in edit_l.items()}
 
     # every kernel's launches on the omnire_bilateral path: render frames
     # and training steps
@@ -4043,10 +4429,13 @@ def main() -> int:
         k["launches_cli_yaml"] = {"train": yaml_l[k["name"]],
                                   "steps": CLI_YAML_STEPS}
 
-    render_l = cli(dev)
+    render_l, grads_l = cli(dev)
     for k in kernels:
         k["launches_render_cli"] = {"novel": render_l[k["name"]],
                                     "frames": RENDER_FRAMES}
+        k["launches_cli_grads"] = {
+            "train": grads_l[k["name"]],
+            "steps": CLI_GRAD_STEPS[-1] + 1 - CLI_GRAD_STEPS[0]}
     cli_smpl(dev)
     cli_omnire(dev)
     cli_presets(dev)
